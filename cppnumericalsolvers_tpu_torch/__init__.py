@@ -2,16 +2,19 @@
 cppnumericalsolvers_tpu for NVIDIA Hopper GPUs.
 
 Same surface and names as the JAX package for what is ported: objectives,
-the stopping machine, L-BFGS with the More-Thuente search, and the batched
-drivers.  Plain code is PyTorch; the hot kernel of the batched solve
-(ops/csrc/flat_trip.cu) is CUDA C++ built at first use.  Entry points run
-on the card unless the caller passes ``device="cpu"``.
+the stopping machine, L-BFGS with the More-Thuente search, and the drivers
+(``minimize``, ``minimize_batched`` with warm start and trace, ``resume``).
+Plain code is PyTorch; the kernels of the batched solves (ops/csrc/*.cu:
+flat_trip, mt_trip, lbfgs_prologue, lbfgs_epilogue) are CUDA C++ built at
+first use.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from .core import (
     CONVERGED_STATUSES,
     DifferentiabilityMode,
     FunctionState,
+    IterationTrace,
     MinimizeResult,
     Objective,
     ProgressState,
@@ -27,6 +30,8 @@ from .core import (
     minimize,
     minimize_batched,
     objective,
+    print_progress,
+    resume,
     status_message,
 )
 from . import linesearch, models, ops, solvers
@@ -38,6 +43,7 @@ __all__ = [
     "CONVERGED_STATUSES",
     "DifferentiabilityMode",
     "FunctionState",
+    "IterationTrace",
     "Lbfgs",
     "MinimizeResult",
     "Objective",
@@ -57,6 +63,8 @@ __all__ = [
     "models",
     "objective",
     "ops",
+    "print_progress",
+    "resume",
     "solvers",
     "status_message",
 ]

@@ -5,11 +5,19 @@ each field); nothing here imports JAX.  :func:`from_jax_numpy` dispatches on
 the field names of what it is given:
 
 * ``StoppingCriteria`` fields -> the port's :class:`StoppingCriteria`;
-* ``ProgressState`` fields -> the port's :class:`ProgressState`;
+* ``ProgressState``, ``FunctionState`` and ``IterationTrace`` fields -> the
+  port's records of the same names;
+* ``LbfgsInternals`` fields (the history chronological, ``(m, n)`` or
+  batch-major ``(B, m, n)``, with the pending pair) -> the port's
+  :class:`LbfgsInternals`, which has the same layout;
 * the flat solve's internals (``s_memory_t``, ``y_memory_t`` in the
   batch-minor ``(m * n8, B_pad)`` layout of ``ops/fused_step_t.py``, plus
   ``mem_count`` and ``gamma``) -> the port's :class:`LbfgsInternals`, with
-  the history chronological and batch-major ``(B, m, n)``.
+  the history chronological and batch-major ``(B, m, n)`` and no pending
+  pair;
+* a whole ``MinimizeResult`` (``state``, ``progress``, ``internals``,
+  ``trace``, each converted as above) -> the port's
+  :class:`MinimizeResult`, which :func:`~.core.driver.resume` continues.
 """
 
 from __future__ import annotations
@@ -19,10 +27,18 @@ import dataclasses
 import numpy as np
 import torch
 
+from .core.callbacks import IterationTrace
+from .core.driver import MinimizeResult
+from .core.objective import FunctionState
 from .core.progress import ProgressState, StoppingCriteria
 from .solvers.lbfgs import LbfgsInternals
 
 __all__ = ["from_jax_numpy", "history_t_to_rows"]
+
+_INT32_FIELDS = frozenset({
+    "nfev", "mem_count", "status", "num_iterations", "x_delta_violations",
+    "f_delta_violations", "past_pos",
+})
 
 
 def _fields(obj) -> dict:
@@ -51,31 +67,48 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
                    device="cpu"):
     """Convert a JAX-package result given as numpy arrays.
 
-    ``obj`` is a NamedTuple or dict of numpy arrays (or scalars).  For the
-    flat solve's internals pass ``n`` and ``m``; the batch size comes from
-    ``mem_count``.
+    ``obj`` is a NamedTuple or dict of numpy arrays (or scalars), possibly
+    nested (a whole result).  For the flat solve's internals pass ``n`` and
+    ``m``; the batch size comes from ``mem_count``.
     """
     fields = _fields(obj)
     names = set(fields)
     crit_names = {f.name for f in dataclasses.fields(StoppingCriteria)}
-    prog_names = {f.name for f in dataclasses.fields(ProgressState)}
 
-    def tensor(v):
-        return torch.as_tensor(np.array(v), device=device)
+    def tensor(v, name=None):
+        a = np.array(v)
+        if name in _INT32_FIELDS:
+            a = a.astype(np.int32)
+        return torch.as_tensor(a, device=device)
+
+    def sub(v):
+        return None if v is None else from_jax_numpy(
+            v, n=n, m=m, device=device)
 
     if names == crit_names:
         return StoppingCriteria(**{k: _scalar(v) for k, v in fields.items()})
-    if names == prog_names:
-        return ProgressState(**{k: tensor(v) for k, v in fields.items()})
+    if names == {"state", "progress", "internals", "trace"}:
+        return MinimizeResult(
+            state=sub(fields["state"]), progress=sub(fields["progress"]),
+            internals=sub(fields["internals"]), trace=sub(fields["trace"]),
+        )
+    for cls in (ProgressState, FunctionState, IterationTrace,
+                LbfgsInternals):
+        if names == {f.name for f in dataclasses.fields(cls)}:
+            return cls(**{k: tensor(v, k) for k, v in fields.items()})
     if {"s_memory_t", "y_memory_t", "mem_count", "gamma"} <= names:
         if n is None or m is None:
             raise ValueError("converting a transposed history needs n and m")
         count = np.asarray(fields["mem_count"])
         b = count.shape[0]
+        gamma = tensor(fields["gamma"])
         return LbfgsInternals(
             s_memory=tensor(history_t_to_rows(fields["s_memory_t"], b, m, n)),
             y_memory=tensor(history_t_to_rows(fields["y_memory_t"], b, m, n)),
-            mem_count=tensor(count.astype(np.int32)),
-            gamma=tensor(fields["gamma"]),
+            mem_count=tensor(count, "mem_count"),
+            gamma=gamma,
+            s_pending=torch.zeros((b, n), dtype=gamma.dtype, device=device),
+            y_pending=torch.zeros((b, n), dtype=gamma.dtype, device=device),
+            pending_valid=torch.zeros((b,), dtype=torch.bool, device=device),
         )
     raise ValueError(f"unrecognised fields: {sorted(names)}")

@@ -1,10 +1,20 @@
-"""Minimize drivers: ``minimize_batched`` and ``minimize``.
+"""Minimize drivers: ``minimize``, ``minimize_batched`` and ``resume``.
 
 PyTorch counterpart of ``cppnumericalsolvers_tpu/core/driver.py`` for what
-L-BFGS needs.  Every batched solve goes to the solver's batched loop (for
-L-BFGS the flat trip-granular solve of ops/flat_solve.py at every n);
-``minimize`` is ``minimize_batched`` on a batch of one, unbatched on return.
-Lanes are independent, so the semantics are those of a single solve.
+L-BFGS needs.  A batched solve takes one of two loops, by the JAX driver's
+rule:
+
+* a fresh solve without a trace goes to the solver's own batched loop
+  (``SolverBase.solve_batched``; for L-BFGS the flat trip-granular solve of
+  ops/flat_solve.py, at every n);
+* a warm start (``internals=``), a trace (``trace=K``), a callback and
+  ``resume`` go to the iteration-granular loop here: one loop at batch level
+  over ``SolverBase.step_and_update``, which continues while any lane's
+  status is CONTINUE (one device-to-host read per iteration) and whose lanes
+  freeze themselves once they stop.
+
+``minimize`` is a batch of one, un-batched on return.  Lanes are
+independent, so the semantics are those of a single solve.
 
 Entry points run on the card: ``device=None`` means ``"cuda"`` and raises
 when there is no GPU.  Pass ``device="cpu"`` for the plain PyTorch version
@@ -18,10 +28,24 @@ from typing import Any
 
 import torch
 
+from .callbacks import IterationTrace, init_trace, record_trace
 from .objective import FunctionState, Objective
-from .progress import ProgressState, StoppingCriteria, default_stopping
+from .progress import (
+    ProgressState,
+    StoppingCriteria,
+    default_stopping,
+    init_progress,
+)
+from .status import Status
+from .tree import tree_map
 
-__all__ = ["SolverBase", "MinimizeResult", "minimize", "minimize_batched"]
+__all__ = [
+    "SolverBase",
+    "MinimizeResult",
+    "minimize",
+    "minimize_batched",
+    "resume",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +61,24 @@ class SolverBase:
         state0: FunctionState,
         stopping: StoppingCriteria,
     ) -> "MinimizeResult":
+        raise NotImplementedError
+
+    def init_batched(self, objective: Objective, state: FunctionState) -> Any:
+        """Fresh solver internals for a batched start ``state``."""
+        raise NotImplementedError
+
+    def step_and_update(
+        self,
+        objective: Objective,
+        state: FunctionState,
+        internals: Any,
+        progress: ProgressState,
+        stopping: StoppingCriteria,
+        done: torch.Tensor,
+    ):
+        """One iteration of every lane, convergence machine included, in
+        place on ``(state, internals, progress)``; a ``done`` lane keeps
+        every bit.  Returns them and the batched evaluations it made."""
         raise NotImplementedError
 
     def default_stopping(self, dtype) -> StoppingCriteria:
@@ -55,10 +97,11 @@ class SolverBase:
 class MinimizeResult:
     state: FunctionState  # final iterate with populated (value, gradient)
     progress: ProgressState  # convergence record, per lane when batched
-    internals: Any  # final solver internals
-    #: Loop trips of the batched solve (= batched objective evaluations =
-    #: device-to-host reads of the loop predicate).
+    internals: Any  # final solver internals (resume-friendly)
+    #: Batched objective evaluations of the solve's loop (each is followed by
+    #: one device-to-host read of a loop predicate).
     trips: int = 0
+    trace: IterationTrace | None = None  # per-iteration record (trace > 0)
 
 
 def resolve_device(device) -> torch.device:
@@ -72,16 +115,82 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def _solve_loop_batched(
+    objective: Objective,
+    solver: SolverBase,
+    state: FunctionState,
+    internals: Any,
+    progress: ProgressState,
+    stopping: StoppingCriteria,
+    trace: int = 0,
+    callback=None,
+) -> MinimizeResult:
+    """The iteration-granular loop, shared by warm starts, traced solves
+    and :func:`resume`.  It updates ``(state, internals, progress)`` in
+    place, so its callers hand it tensors of their own."""
+    cont = int(Status.CONTINUE)
+    b = state.value.shape[0]
+    trace_buf = (
+        init_trace(trace, state.value.dtype, (b,), state.value.device)
+        if trace > 0 else None
+    )
+    trips = 0
+    # One device-to-host read per iteration: any lane still continuing.
+    while bool((progress.status == cont).any()):
+        done = progress.status != cont
+        state, internals, progress, n_eval = solver.step_and_update(
+            objective, state, internals, progress, stopping, done
+        )
+        trips += n_eval
+        if trace_buf is not None:
+            trace_buf = record_trace(trace_buf, progress, state)
+        if callback is not None:
+            # Live observability (PrintProgressCallback analog,
+            # solver.h:59-147): one host call per iteration, with copies,
+            # since the loop goes on writing into its carry.
+            callback({
+                "num_iterations": progress.num_iterations.clone(),
+                "value": state.value.clone(),
+                "gradient_norm": torch.amax(torch.abs(state.gradient), -1),
+                "x_delta": progress.x_delta.clone(),
+                "f_delta": progress.f_delta.clone(),
+                "status": progress.status.clone(),
+            })
+    return MinimizeResult(
+        state=state, progress=progress, internals=internals, trips=trips,
+        trace=trace_buf,
+    )
+
+
+def _own(tree, device):
+    """A copy of every tensor of ``tree`` on ``device``: the loop works in
+    place and must not change what its caller holds."""
+    return tree_map(lambda t: t.to(device).clone().contiguous(), tree)
+
+
 def minimize_batched(
     objective: Objective,
     x0_batch,
     solver: SolverBase,
     stopping: StoppingCriteria | None = None,
     *,
+    trace: int = 0,
+    internals: Any | None = None,
     device=None,
 ) -> MinimizeResult:
     """Solve a batch of instances of one objective; ``x0_batch`` is
-    ``(B, n)`` and every result field gains a leading batch axis."""
+    ``(B, n)`` and every result field gains a leading batch axis.
+
+    ``internals`` (optional) is a solver-internals record with a leading
+    batch axis, e.g. a previous result's for a warm start; it is not
+    changed.  ``trace=K`` records the first K iterations of every lane in
+    ``result.trace``."""
+    return _solve_batched(objective, x0_batch, solver, stopping, trace,
+                          internals, None, device)
+
+
+def _solve_batched(objective, x0_batch, solver, stopping, trace, internals,
+                   callback, device) -> MinimizeResult:
     solver.check_mode(objective)
     device = resolve_device(device)
     x0 = torch.as_tensor(x0_batch, device=device)
@@ -92,18 +201,36 @@ def minimize_batched(
     if stopping is None:
         stopping = solver.default_stopping(x0.dtype)
     state0 = objective.evaluate(x0.contiguous(), nfev=0)
-    return solver.solve_batched(objective, state0, stopping)
+    if internals is None and trace == 0 and callback is None:
+        return solver.solve_batched(objective, state0, stopping)
+    state0 = _own(state0, device)
+    internals0 = (
+        solver.init_batched(objective, state0) if internals is None
+        else _own(internals, device)
+    )
+    progress0 = init_progress((x0.shape[0],), x0.dtype, device)
+    return _solve_loop_batched(
+        objective, solver, state0, internals0, progress0, stopping, trace,
+        callback,
+    )
 
 
 def _unbatch(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree[0]
-    if dataclasses.is_dataclass(tree):
-        return type(tree)(**{
-            f.name: _unbatch(getattr(tree, f.name))
-            for f in dataclasses.fields(tree)
-        })
-    return tree
+    return tree_map(lambda t: t[0], tree)
+
+
+def _batch(tree):
+    return tree_map(lambda t: t[None], tree)
+
+
+def _unbatch_result(res: MinimizeResult) -> MinimizeResult:
+    return MinimizeResult(
+        state=_unbatch(res.state),
+        progress=_unbatch(res.progress),
+        internals=_unbatch(res.internals),
+        trips=res.trips,
+        trace=_unbatch(res.trace),
+    )
 
 
 def minimize(
@@ -112,16 +239,67 @@ def minimize(
     solver: SolverBase,
     stopping: StoppingCriteria | None = None,
     *,
+    trace: int = 0,
+    callback=None,
+    internals: Any | None = None,
     device=None,
 ) -> MinimizeResult:
-    """Minimize ``objective`` from ``x0`` (n,): a batch of one."""
+    """Minimize ``objective`` from ``x0`` (n,): a batch of one.
+
+    ``internals`` overrides the solver's fresh internal state (a previous
+    un-batched result's, for a warm start).  ``callback`` is called once per
+    iteration with a dict of that iteration's figures
+    (:func:`~.callbacks.print_progress` prints them)."""
     x0 = torch.as_tensor(x0)
-    res = minimize_batched(
-        objective, x0[None], solver, stopping, device=device
+    res = _solve_batched(
+        objective, x0[None], solver, stopping, trace,
+        None if internals is None else _batch(internals),
+        None if callback is None
+        else lambda info: callback(_unbatch_info(info)),
+        device,
     )
-    return MinimizeResult(
-        state=_unbatch(res.state),
-        progress=_unbatch(res.progress),
-        internals=_unbatch(res.internals),
-        trips=res.trips,
+    return _unbatch_result(res)
+
+
+def _unbatch_info(info: dict) -> dict:
+    return {k: v[0] for k, v in info.items()}
+
+
+def resume(
+    objective: Objective,
+    checkpoint: MinimizeResult,
+    solver: SolverBase,
+    stopping: StoppingCriteria | None = None,
+    *,
+    trace: int = 0,
+    callback=None,
+    device=None,
+) -> MinimizeResult:
+    """Continue a solve from a checkpointed :class:`MinimizeResult`, batched
+    or un-batched (the result comes back in the same form).
+
+    All solver state is value state, so a checkpoint is just the result
+    record.  The terminal status is re-opened and every counter kept
+    (violation counts, the plateau ring, ``num_iterations``), so a solve
+    interrupted at iteration k (e.g. by ``max_iterations=k``) and resumed
+    reproduces the uninterrupted trajectory.  The checkpoint is not
+    changed."""
+    solver.check_mode(objective)
+    device = resolve_device(device)
+    batched = checkpoint.state.x.dim() == 2
+    if stopping is None:
+        stopping = solver.default_stopping(checkpoint.state.x.dtype)
+    state, internals, progress = (
+        _own(t if batched else _batch(t), device)
+        for t in (checkpoint.state, checkpoint.internals,
+                  checkpoint.progress)
     )
+    progress.status.fill_(int(Status.CONTINUE))
+    if callback is not None and not batched:
+        user_callback = callback
+        callback = lambda info: user_callback(_unbatch_info(info))  # noqa: E731
+    res = _solve_loop_batched(
+        objective, solver, state, internals, progress, stopping, trace,
+        callback,
+    )
+    return res if batched else _unbatch_result(res)

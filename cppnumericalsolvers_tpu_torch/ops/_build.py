@@ -3,8 +3,8 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 Libraries go to ``build/torch_kernels/`` in the directory that holds the
-package (the repository root in a checkout), named by a hash of the source
-and the flags, so an edited source is rebuilt and an
+package (the repository root in a checkout), named by a hash of the source,
+the shared header and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs at import time.
 """
 
@@ -16,11 +16,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load_flat_trip"]
+__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "build_all", "load"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
+_HEADER = _CSRC / "common.cuh"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
@@ -28,6 +30,17 @@ NVCC_FLAGS = (
     "-O3", "-std=c++17", "--fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+_CRIT = [_D] * 4 + [_I] * 6
+#: Kernel name -> argument types of its two C entry points
+#: (``cppns_<name>_f32`` and ``cppns_<name>_f64``).
+KERNELS = {
+    "flat_trip": [_P] * 12 + [_I] * 4 + _CRIT + [_P],
+    "mt_trip": [_P] * 8 + [_I] * 3 + [_P],
+    "lbfgs_prologue": [_P] * 13 + [_I] * 3 + [_P],
+    "lbfgs_epilogue": [_P] * 22 + [_I] * 2 + _CRIT + [_P],
+}
 
 
 def _nvcc() -> str:
@@ -45,7 +58,7 @@ def build(name: str) -> Path:
     returns the library's path."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + _HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
@@ -56,21 +69,29 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed for {src.name} ({proc.returncode}):\n"
+            f"nvcc failed for {name}.cu ({proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, lib)
     return lib
 
 
+def build_all() -> dict:
+    """:func:`build` every kernel, one ``nvcc`` per source, all started
+    together; returns ``{name: library path}``."""
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        return dict(zip(KERNELS, pool.map(build, KERNELS)))
+
+
 @functools.lru_cache(maxsize=None)
-def load_flat_trip() -> ctypes.CDLL:
-    """The flat-trip library with its C signatures declared."""
-    lib = ctypes.CDLL(str(build("flat_trip")))
-    p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    for fn in (lib.cppns_flat_trip_f32, lib.cppns_flat_trip_f64):
-        fn.argtypes = [p] * 12 + [i] * 4 + [d] * 4 + [i] * 6 + [p]
-        fn.restype = i
-    lib.cppns_error_string.argtypes = [i]
+def load(name: str) -> ctypes.CDLL:
+    """The library of kernel ``name`` with its C signatures declared."""
+    lib = ctypes.CDLL(str(build(name)))
+    for suffix in ("f32", "f64"):
+        fn = getattr(lib, f"cppns_{name}_{suffix}")
+        fn.argtypes = KERNELS[name]
+        fn.restype = _I
+    lib.cppns_error_string.argtypes = [_I]
     lib.cppns_error_string.restype = ctypes.c_char_p
     return lib
+

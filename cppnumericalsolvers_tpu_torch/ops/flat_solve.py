@@ -38,7 +38,6 @@ whose ``cstep`` reports an input error there runs on to ``max_fev``.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -51,14 +50,21 @@ from ..core.progress import (
     update_progress,
 )
 from ..core.status import Status
+from .two_loop import push_history, search_direction, two_loop_direction
+from ._kernel import (
+    SMEM_LIMIT as _SMEM_LIMIT,
+    check_args,
+    check_float,
+    check_smem,
+    launch,
+    two_loop_smem_bytes as flat_trip_smem_bytes,
+)
 from ..linesearch.more_thuente import (
     _FTOL,
-    _GTOL,
     _STPMAX,
     _STPMIN,
-    _XTOL,
-    cstep,
     trial_setup,
+    trip_step,
 )
 
 __all__ = [
@@ -107,11 +113,6 @@ _I_INFOC = 11
 _NI = 12
 
 _CONT = int(Status.CONTINUE)
-
-# Shared memory one block may use on Hopper (232,448 bytes).
-_SMEM_LIMIT = 227 * 1024
-_MAX_WARPS = 8
-_RED_SLOTS = 8
 
 
 @dataclasses.dataclass
@@ -210,9 +211,7 @@ def flat_trip_reference(
     point into ``x_trial``, in place.  ``f_t``/``g_t`` are the objective at
     the current ``x_trial``."""
     x0, g0, sdir = st.x0, st.g0, st.sdir
-    b, m, n = st.s.shape
-    dtype = x0.dtype
-    eps = torch.finfo(dtype).eps
+    b = x0.shape[0]
     i32 = torch.int32
     sf, si = st.sf, st.si
 
@@ -247,92 +246,37 @@ def flat_trip_reference(
     dgy = frow(_F_DGY)
     width = frow(_F_WIDTH)
     width1 = frow(_F_WIDTH1)
-    brackt = irow(_I_BRACKT) != 0
     stage1_i = irow(_I_STAGE1)
     ls_nfev = irow(_I_LSNFEV)
     infoc = irow(_I_INFOC)
 
     # --- More-Thuente trip (more_thuente.h:199-252) -----------------------
-    dg = _rdot(g_t, sdir)
-    ftest1 = f0 + stp * dgtest
     nfev1 = ls_nfev + 1
-
-    info_new = torch.where(
-        (brackt & ((stp <= stmin) | (stp >= stmax))) | (infoc == 0),
-        ifull(6), ifull(0),
+    step = trip_step(
+        f0, dginit, dgtest, f_t, _rdot(g_t, sdir), stp, stmin, stmax, stx,
+        fx, dgx, sty, fy, dgy, width, width1, irow(_I_BRACKT), stage1_i,
+        nfev1, infoc, max_fev,
     )
-    info_new = torch.where(
-        (stp == _STPMAX) & (f_t <= ftest1) & (dg <= dgtest), ifull(5),
-        info_new,
-    )
-    info_new = torch.where(
-        (stp == _STPMIN) & ((f_t > ftest1) | (dg >= dgtest)), ifull(4),
-        info_new,
-    )
-    info_new = torch.where(nfev1 >= max_fev, ifull(3), info_new)
-    info_new = torch.where(
-        brackt & (stmax - stmin <= _XTOL * stmax), ifull(2), info_new
-    )
-    info_new = torch.where(
-        (f_t <= ftest1) & (torch.abs(dg) <= _GTOL * (-dginit)), ifull(1),
-        info_new,
-    )
+    info_new = step.info
     searching = active & (info_new == 0)
-
-    stage1_new_i = torch.where(
-        (stage1_i != 0) & (f_t <= ftest1) & (dg >= min(_FTOL, _GTOL) * dginit),
-        ifull(0), stage1_i,
-    )
-
-    use_modified = (stage1_new_i != 0) & (f_t <= fx) & (f_t > ftest1)
-    fm = torch.where(use_modified, f_t - stp * dgtest, f_t)
-    fxm = torch.where(use_modified, fx - stx * dgtest, fx)
-    fym = torch.where(use_modified, fy - sty * dgtest, fy)
-    dgm = torch.where(use_modified, dg - dgtest, dg)
-    dgxm = torch.where(use_modified, dgx - dgtest, dgx)
-    dgym = torch.where(use_modified, dgy - dgtest, dgy)
-
-    cs = cstep(stx, fxm, dgxm, sty, fym, dgym, stp, fm, dgm, brackt, stmin,
-               stmax)
-    infoc_new = cs.info
-    stx_c = cs.stx
-    fx_c = torch.where(use_modified, cs.fx + cs.stx * dgtest, cs.fx)
-    dgx_c = torch.where(use_modified, cs.dx + dgtest, cs.dx)
-    sty_c = cs.sty
-    fy_c = torch.where(use_modified, cs.fy + cs.sty * dgtest, cs.fy)
-    dgy_c = torch.where(use_modified, cs.dy + dgtest, cs.dy)
-    brackt_c = cs.brackt
-
-    # Forced bisection when the bracket shrinks too slowly.
-    stp_c = torch.where(
-        brackt_c & (torch.abs(sty_c - stx_c) >= 0.66 * width1),
-        stx_c + 0.5 * (sty_c - stx_c),
-        cs.stp,
-    )
-    width1_c = torch.where(brackt_c, width, width1)
-    width_c = torch.where(brackt_c, torch.abs(sty_c - stx_c), width)
-
-    stp_t, stmin_t, stmax_t = trial_setup(
-        stp_c, stx_c, sty_c, brackt_c, nfev1, infoc_new, max_fev
-    )
 
     def upd(new, old):
         return torch.where(searching, new, old)
 
-    stp1 = upd(stp_t, stp)
-    stmin1 = upd(stmin_t, stmin)
-    stmax1 = upd(stmax_t, stmax)
-    stx1 = upd(stx_c, stx)
-    fx1 = upd(fx_c, fx)
-    dgx1 = upd(dgx_c, dgx)
-    sty1 = upd(sty_c, sty)
-    fy1 = upd(fy_c, fy)
-    dgy1 = upd(dgy_c, dgy)
-    width_1 = upd(width_c, width)
-    width1_1 = upd(width1_c, width1)
-    brackt1 = upd(brackt_c.to(i32), irow(_I_BRACKT))
-    stage1_1 = upd(stage1_new_i, stage1_i)
-    infoc1 = upd(infoc_new, infoc)  # the MINPACK carry (see module note)
+    stp1 = upd(step.stp, stp)
+    stmin1 = upd(step.stmin, stmin)
+    stmax1 = upd(step.stmax, stmax)
+    stx1 = upd(step.stx, stx)
+    fx1 = upd(step.fx, fx)
+    dgx1 = upd(step.dgx, dgx)
+    sty1 = upd(step.sty, sty)
+    fy1 = upd(step.fy, fy)
+    dgy1 = upd(step.dgy, dgy)
+    width_1 = upd(step.width, width)
+    width1_1 = upd(step.width1, width1)
+    brackt1 = upd(step.brackt, irow(_I_BRACKT))
+    stage1_1 = upd(step.stage1, stage1_i)
+    infoc1 = upd(step.infoc, infoc)  # the MINPACK carry (see module note)
     gacc1 = torch.where(col(active), g_t, st.gacc)
     facc1 = torch.where(active, f_t, frow(_F_FACC))
     ls_nfev1 = torch.where(active, nfev1, ls_nfev)
@@ -384,67 +328,14 @@ def flat_trip_reference(
     push_live = boundary & (status1 == _CONT)
     valid = push_live & finite
 
-    sy = _rdot(s_new, y_new)
-    s2 = _rdot(s_new, s_new)
-    y2 = _rdot(y_new, y_new)
-    threshold = eps * torch.sqrt(s2) * torch.sqrt(y2)
-    accept = valid & (sy > threshold)
-    full = count >= m
-    slot = torch.clamp_max(count, m - 1)
-    new_count = torch.where(accept & ~full, count + 1, count)
-    gamma = frow(_F_GAMMA)
-    temp = sy / torch.where(y2 > eps, y2, torch.ones_like(y2))
-    gamma_ok = (
-        valid & (y2 > eps) & torch.isfinite(temp) & (torch.abs(temp) <= 1e7)
+    s_o, y_o, new_count, new_gamma = push_history(
+        st.s, st.y, count, frow(_F_GAMMA), s_new, y_new, valid
     )
-    new_gamma = torch.where(
-        gamma_ok, torch.clamp_min(temp, eps), gamma
-    )
+    q = two_loop_direction(g1, s_o, y_o, new_count, new_gamma)
 
-    rows = torch.arange(m, device=x0.device)
-    shift = (accept & full)[:, None] & (rows < m - 1)[None, :]
-    up = torch.cat([st.s[:, 1:], st.s[:, -1:]], dim=1)
-    up_y = torch.cat([st.y[:, 1:], st.y[:, -1:]], dim=1)
-    write = (accept[:, None] & (slot[:, None] == rows[None, :]))[..., None]
-    s_o = torch.where(write, s_new[:, None, :],
-                      torch.where(shift[..., None], up, st.s))
-    y_o = torch.where(write, y_new[:, None, :],
-                      torch.where(shift[..., None], up_y, st.y))
-
-    alphas, rhos, usables = [None] * m, [None] * m, [None] * m
-    q = g1
-    for r in range(m - 1, -1, -1):
-        s_r, y_r = s_o[:, r], y_o[:, r]
-        denom = _rdot(s_r, y_r)
-        usable = (new_count > r) & (torch.abs(denom) >= eps)
-        rho = torch.where(usable, 1.0 / denom, torch.zeros_like(denom))
-        alpha = rho * _rdot(s_r, q)
-        q = torch.where(col(usable), q - col(alpha) * y_r, q)
-        alphas[r], rhos[r], usables[r] = alpha, rho, usable
-    q = q * col(new_gamma)
-    for r in range(m):
-        s_r, y_r = s_o[:, r], y_o[:, r]
-        beta = rhos[r] * _rdot(y_r, q)
-        q = torch.where(col(usables[r]), q + s_r * col(alphas[r] - beta), q)
-
-    one = torch.ones_like(f0)
-    xnorm = torch.sqrt(_rdot(x1, x1))
-    relative_eps = eps * torch.maximum(one, xnorm)
-    descent = -_rdot(g1, q)
-    dnorm = torch.sqrt(_rdot(q, q))
-    gnorm_full = torch.sqrt(_rdot(g1, g1))
-
-    alpha0 = torch.where(
-        new_count == 0, torch.where(dnorm > eps, 1.0 / dnorm, one), one
-    )
-    invalid = ~torch.isfinite(descent) | (descent > -eps * relative_eps)
-    dir_ = torch.where(col(invalid), g1, q)
-    alpha0 = torch.where(
-        invalid, torch.where(gnorm_full > eps, 1.0 / gnorm_full, one), alpha0
-    )
+    ls_dir_new, alpha0, dginit_new, invalid = search_direction(
+        x1, g1, q, new_count)
     new_count = torch.where(invalid & push_live, ifull(0), new_count)
-    ls_dir_new = -dir_
-    dginit_new = _rdot(g1, ls_dir_new)
     dgtest_new = _FTOL * dginit_new
 
     zero = torch.zeros_like(f0)
@@ -484,7 +375,7 @@ def flat_trip_reference(
     sf_new[_F_DGY] = sel3(dginit_new, dgy1)
     sf_new[_F_WIDTH] = sel3(big_width, width_1)
     sf_new[_F_WIDTH1] = sel3(2.0 * big_width, width1_1)
-    sf_new[_F_GAMMA] = sel3(new_gamma, gamma)
+    sf_new[_F_GAMMA] = sel3(new_gamma, frow(_F_GAMMA))
     sf_new[_F_XDELTA] = sel3(pr.x_delta, frow(_F_XDELTA))
     sf_new[_F_FDELTA] = sel3(pr.f_delta, frow(_F_FDELTA))
     sf_new[_F_GNORM] = sel3(pr.gradient_norm, frow(_F_GNORM))
@@ -517,9 +408,8 @@ def flat_trip_reference(
 def _check_trip_args(st: FlatState, f_t, g_t, x_trial):
     b, m, n = st.s.shape
     dtype = st.x0.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"flat_trip supports float32/float64, got {dtype}")
-    expect = {
+    check_float("flat_trip", dtype)
+    dev = check_args("flat_trip", {
         "x0": (st.x0, (b, n), dtype), "g0": (st.g0, (b, n), dtype),
         "sdir": (st.sdir, (b, n), dtype), "gacc": (st.gacc, (b, n), dtype),
         "s": (st.s, (b, m, n), dtype), "y": (st.y, (b, m, n), dtype),
@@ -527,27 +417,19 @@ def _check_trip_args(st: FlatState, f_t, g_t, x_trial):
         "sf": (st.sf, (b, _NF), dtype), "si": (st.si, (b, _NI), torch.int32),
         "f_t": (f_t, (b,), dtype), "g_t": (g_t, (b, n), dtype),
         "x_trial": (x_trial, (b, n), dtype),
-    }
-    for name, (t, shape, dt) in expect.items():
-        if tuple(t.shape) != shape or t.dtype != dt:
-            raise ValueError(
-                f"flat_trip: {name} must be {dt} of shape {shape}, got "
-                f"{t.dtype} of shape {tuple(t.shape)}"
-            )
-        if t.device != st.x0.device:
-            raise ValueError(f"flat_trip: {name} is on {t.device}, "
-                             f"expected {st.x0.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flat_trip: {name} must be contiguous")
-    return b, m, n
+    })
+    return dev, b, m, n
 
 
-def flat_trip_smem_bytes(m: int, n: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block of the CUDA kernel: the two-loop's
-    ``q`` (n values), per-row alpha/rho (m each), the usable flags and the
-    block-reduction scratch."""
+def crit_scalars(stopping: StoppingCriteria) -> tuple:
+    """The criteria in the order the kernels' C entry points take them."""
     return (
-        (_RED_SLOTS * _MAX_WARPS + 2 * m + n) * itemsize + 4 * m
+        stopping.x_delta, stopping.f_delta, stopping.past_delta,
+        stopping.gradient_norm,
+        stopping.max_iterations, stopping.x_delta_violations,
+        stopping.f_delta_violations, stopping.past,
+        int(stopping.f_delta_relative),
+        int(stopping.gradient_norm_relative),
     )
 
 
@@ -562,50 +444,19 @@ def flat_trip(
     """One trip, in place.  CPU tensors run :func:`flat_trip_reference`;
     CUDA tensors launch the kernel of ``csrc/flat_trip.cu`` on the current
     stream, or raise.  ``flat_trip.launches`` counts kernel launches."""
-    b, m, n = _check_trip_args(st, f_t, g_t, x_trial)
-    dev = st.x0.device
+    dev, b, m, n = _check_trip_args(st, f_t, g_t, x_trial)
     if b == 0:
         return
     if dev.type == "cpu":
         flat_trip_reference(st, f_t, g_t, x_trial, stopping, max_fev)
         return
-    if dev.type != "cuda":
-        raise ValueError(f"flat_trip: unsupported device {dev}")
-    smem = flat_trip_smem_bytes(m, n, st.x0.element_size())
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"flat_trip: n={n}, m={m} needs {smem} bytes of shared memory "
-            f"per block, more than the {_SMEM_LIMIT} a Hopper block has"
-        )
-    from . import _build
-
-    lib = _build.load_flat_trip()
-    fn = (lib.cppns_flat_trip_f32 if st.x0.dtype == torch.float32
-          else lib.cppns_flat_trip_f64)
-    ptr = ctypes.c_void_p
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            ptr(st.x0.data_ptr()), ptr(st.g0.data_ptr()),
-            ptr(st.sdir.data_ptr()), ptr(st.gacc.data_ptr()),
-            ptr(st.s.data_ptr()), ptr(st.y.data_ptr()),
-            ptr(st.ring.data_ptr()), ptr(st.sf.data_ptr()),
-            ptr(st.si.data_ptr()), ptr(f_t.data_ptr()),
-            ptr(g_t.data_ptr()), ptr(x_trial.data_ptr()),
-            b, n, m, int(max_fev),
-            stopping.x_delta, stopping.f_delta, stopping.past_delta,
-            stopping.gradient_norm,
-            stopping.max_iterations, stopping.x_delta_violations,
-            stopping.f_delta_violations, stopping.past,
-            int(stopping.f_delta_relative),
-            int(stopping.gradient_norm_relative),
-            ptr(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"flat_trip kernel launch failed: CUDA error {err} "
-            f"({lib.cppns_error_string(err).decode()})"
-        )
+    check_smem("flat_trip", m, n, st.x0.element_size())
+    launch(
+        "flat_trip", dev, st.x0.dtype,
+        (st.x0, st.g0, st.sdir, st.gacc, st.s, st.y, st.ring, st.sf, st.si,
+         f_t, g_t, x_trial),
+        (b, n, m, int(max_fev), *crit_scalars(stopping)),
+    )
     flat_trip.launches += 1
 
 
@@ -629,11 +480,14 @@ def flat_lbfgs_solve(
     stopping: StoppingCriteria,
     m: int,
     max_fev: int,
-    trip=flat_trip,
+    trip=None,
 ) -> FlatSolveResult:
     """Run the flat batched solve from the evaluated batched start
-    ``state0`` (B, n).  ``trip`` is :func:`flat_trip` (the kernel on CUDA
-    tensors) or :func:`flat_trip_reference` (the plain version anywhere)."""
+    ``state0`` (B, n).  ``trip`` is :func:`flat_trip` (the default: the
+    kernel on CUDA tensors) or :func:`flat_trip_reference` (the plain
+    version anywhere)."""
+    if trip is None:
+        trip = flat_trip
     st, x_trial = init_flat_state(state0, m, max_fev)
     dtype = st.x0.dtype
     trips = 0
