@@ -3,17 +3,26 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Two paths through ``minimize_batched(objective, x0_batch, Lbfgs(m=10))``:
+Five paths, the first four through ``minimize_batched(objective, x0_batch,
+Lbfgs(m=10))``:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
 * the iteration-granular loop (``trace=``, ``internals=``, ``resume``), whose
   iteration is one ``lbfgs_prologue`` launch, one ``mt_trip`` launch per
-  evaluation of the batched line search, and one ``lbfgs_epilogue`` launch.
+  evaluation of the batched line search, and one ``lbfgs_epilogue`` launch;
+* path A, that loop on the batch-minor history: ``lbfgs_prologue_t`` in
+  place of ``lbfgs_prologue`` (routed by ``Lbfgs._TRANSPOSED_N_MAX``, which
+  the script sets so that the path runs whatever the shipped value is);
+* path B, a second-mode objective with the Hessian-condition criterion on:
+  the generic loop body over ``Lbfgs.step``, whose iteration is one
+  ``push_two_loop`` launch (``lbfgs_push_and_direction``), the search's
+  ``mt_trip`` launches and cond(H) at the new iterate;
+* path C, the public op ``two_loop_direction`` (the ``two_loop`` kernel).
 
 Phases (each raises on failure, so the script then exits non-zero):
 
-1. build   compile the four sources of ``ops/csrc/`` with nvcc for sm_90a,
+1. build   compile the seven sources of ``ops/csrc/`` with nvcc for sm_90a,
            all at once, and load them;
 2. card    print the card's name and power limit (nvidia-smi);
 3. parity  flat: ~50 trips of a plain-version solve; at every trip the
@@ -33,11 +42,15 @@ Phases (each raises on failure, so the script then exits non-zero):
            the end and a warm start with ``internals=`` and ``trace=``, with
            launch counts that must match the iteration and trip counts; the
            result is held against the same solves through the plain versions
-           on the card and against the flat path;
+           on the card and against the flat path.
+           Paths A, B and C: see ``nested_main(batch_minor=True)``,
+           ``path_b_main`` and ``path_c_main``;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
-           needs, and whole flat and nested solves side by side;
+           needs, whole flat and nested solves side by side, and the
+           iteration-granular loop on the two history layouts side by side
+           (the routing measurement behind ``Lbfgs._TRANSPOSED_N_MAX``);
 6. report  one JSON line per shape, the ``kernels`` line, the card line and,
            last, the device line.  ``chiprun_out/chip_smoke.json`` keeps the
            full record.
@@ -82,11 +95,36 @@ EDGE_STOPPING = dict(past=0, f_delta=1e-3, f_delta_violations=2,
 NESTED_CUT = 10                 # max_iterations of the cut solve
 NESTED_TRACE = 16               # trace capacity on the main path
 NESTED_TIMED_ITERATIONS = 40    # depth of the spin-padded nested solves
+# The batch-minor loop (path A) and the routing measurement.
+T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
+PATH_A_SHAPES = [(1024, 32), (512, 2048)]
+# Path B: the Hessian is (B, n, n), so n stays small; the larger shape's
+# solves are cut at this many iterations.  The criterion is this factor
+# times cond(H) at the optimum: lanes whose way leads through a region
+# where a 2x2 block of H is near singular stop on it, the others do not.
+PATH_B_SHAPES = [(1024, 32), (1024, 256)]
+PATH_B_CUT = {(1024, 256): 40}
+PATH_B_FACTOR = 100.0
+# The larger shape's main-path solves run in float64: its criterion is 3e7,
+# and float32 cannot resolve cond(H) there (cond * eps is about 4), so a
+# last-bit difference in x flips the test: kernel and plain-version solves
+# agreed on 71% of lanes' statuses in float32 with mean nfev 0.004 apart.
+PATH_B_DTYPE = {(1024, 32): "float32", (1024, 256): "float64"}
+# Made-up inputs for the two-loop kernels, which need no Hessian.
+PUSH_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (256, 4096)]
+TWO_LOOP_SHAPES = [(1024, 32), (1024, 1024), (256, 4096)]
+# One made-up call through both prologues, built to reach what no parity
+# solve reaches on the card: the invalid-descent history reset.
+RESET_SHAPES = [(1024, 32), (1024, 1024)]
+OP_TIMED_CALLS = 20
 REPLACES = {
     "flat_trip": "cppnumericalsolvers_tpu/ops/flat_solve.py:109",
     "mt_trip": "cppnumericalsolvers_tpu/ops/fused_linesearch.py:255",
     "lbfgs_prologue": "cppnumericalsolvers_tpu/ops/fused_step.py:118",
     "lbfgs_epilogue": "cppnumericalsolvers_tpu/ops/fused_step.py:358",
+    "lbfgs_prologue_t": "cppnumericalsolvers_tpu/ops/fused_step_t.py:103",
+    "push_two_loop": "cppnumericalsolvers_tpu/ops/two_loop.py:658",
+    "two_loop": "cppnumericalsolvers_tpu/ops/two_loop.py:232",
 }
 # Float outputs: |kernel - plain| <= RTOL * scale, where scale is the
 # largest magnitude in the lane's vector (or the scalar itself).  The kernel
@@ -129,39 +167,84 @@ class Mods:
         from cppnumericalsolvers_tpu_torch.ops import flat_solve as fs
         from cppnumericalsolvers_tpu_torch.ops import fused_linesearch as fl
         from cppnumericalsolvers_tpu_torch.ops import fused_step as fstep
+        from cppnumericalsolvers_tpu_torch.ops import fused_step_t as ft
+        from cppnumericalsolvers_tpu_torch.ops import two_loop as tl
         from cppnumericalsolvers_tpu_torch.solvers import lbfgs as lb
 
         self.cns, self.build, self.fs, self.fl = cns, _build, fs, fl
-        self.fstep, self.lb = fstep, lb
-        #: The nested path's kernel wrappers (each counts its launches) and
-        #: their plain versions.
-        self.kernels = {
+        self.fstep, self.ft, self.tl, self.lb = fstep, ft, tl, lb
+        #: Every kernel wrapper but ``flat_trip`` (each counts its launches)
+        #: and its plain version, by the kernel's name.
+        self.wrappers = {
             "lbfgs_prologue": fstep.lbfgs_prologue,
+            "lbfgs_prologue_t": ft.lbfgs_prologue_t,
             "mt_trip": fl.mt_trip,
             "lbfgs_epilogue": fstep.lbfgs_epilogue,
+            "push_two_loop": tl.lbfgs_push_and_direction,
+            "two_loop": tl.two_loop_direction,
         }
-        self.plain = {
+        self.plain_all = {
             "lbfgs_prologue": fstep.lbfgs_prologue_reference,
+            "lbfgs_prologue_t": ft.lbfgs_prologue_t_reference,
             "mt_trip": fl.mt_trip_reference,
             "lbfgs_epilogue": fstep.lbfgs_epilogue_reference,
+            "push_two_loop": tl.lbfgs_push_and_direction_reference,
+            "two_loop": tl.two_loop_direction_reference,
         }
+        #: The nested path's three kernels, batch-major and batch-minor
+        #: (path A), and path B's two.
+        self.kernels, self.plain = self.pick(
+            "lbfgs_prologue", "mt_trip", "lbfgs_epilogue")
+        self.kernels_t, self.plain_t = self.pick(
+            "lbfgs_prologue_t", "mt_trip", "lbfgs_epilogue")
+        self.kernels_b, self.plain_b = self.pick("push_two_loop", "mt_trip")
+
+    def pick(self, *names):
+        return ({k: self.wrappers[k] for k in names},
+                {k: self.plain_all[k] for k in names})
+
+    def nested(self, batch_minor: bool):
+        """``(kernels, plain versions, the prologue's name)`` of the
+        iteration-granular loop on one history layout."""
+        if batch_minor:
+            return self.kernels_t, self.plain_t, "lbfgs_prologue_t"
+        return self.kernels, self.plain, "lbfgs_prologue"
+
+    @contextlib.contextmanager
+    def layout(self, batch_minor: bool):
+        """Route the iteration-granular loop to one history layout by
+        setting the solver's class attributes, whatever they ship as."""
+        cls = self.lb.Lbfgs
+        old = cls._TRANSPOSED_N_MAX, cls._TRANSPOSED_B_MIN
+        try:
+            cls._TRANSPOSED_N_MAX = 1 << 30 if batch_minor else 0
+            cls._TRANSPOSED_B_MIN = 1
+            yield
+        finally:
+            cls._TRANSPOSED_N_MAX, cls._TRANSPOSED_B_MIN = old
 
     @contextlib.contextmanager
     def swapped(self, fns: dict):
-        """Run the nested path through ``fns`` (by kernel name) in place of
-        the kernel wrappers: the plain versions, or wrappers that compare,
-        time or count.  The names set are those the solver and the search
-        look up at each call; the launch counts stay on the wrappers."""
+        """Run the solves through ``fns`` (by kernel name) in place of the
+        kernel wrappers: the plain versions, or wrappers that compare, time
+        or count.  The names set are those the solver and the search look up
+        at each call; a kernel that ``fns`` does not name keeps its wrapper,
+        and the launch counts stay on the wrappers."""
         try:
             self._set(fns)
             yield
         finally:
-            self._set(self.kernels)
+            self._set({})
 
     def _set(self, fns: dict) -> None:
-        self.lb.lbfgs_prologue = fns["lbfgs_prologue"]
-        self.lb.lbfgs_epilogue = fns["lbfgs_epilogue"]
-        self.fl.mt_trip = fns["mt_trip"]
+        def get(name):
+            return fns.get(name, self.wrappers[name])
+
+        self.lb.lbfgs_prologue = get("lbfgs_prologue")
+        self.lb.lbfgs_prologue_t = get("lbfgs_prologue_t")
+        self.lb.lbfgs_epilogue = get("lbfgs_epilogue")
+        self.lb.lbfgs_push_and_direction = get("push_two_loop")
+        self.fl.mt_trip = get("mt_trip")
 
 
 def main() -> int:
@@ -224,6 +307,46 @@ def main() -> int:
             log(f"[parity] nested {dname} ({b}, {n}) covered: "
                 + json.dumps(cover))
             check_cover(cover, b, n)
+        for b, n in T_SHAPES:
+            t0 = time.perf_counter()
+            nested, cover = nested_parity(mods, obj, start(b, n, dtype),
+                                          dname, batch_minor=True)
+            cover["seconds"] = time.perf_counter() - t0
+            record[f"path_a_parity_{dname}_{b}x{n}"] = {**nested,
+                                                        "cover": cover}
+            for name, r in nested.items():
+                check_parity(name, dname, b, n, r, max_abs_err)
+            log(f"[parity] batch-minor {dname} ({b}, {n}) covered: "
+                + json.dumps(cover))
+            check_cover(cover, b, n)
+        made = [(shape, ("lbfgs_prologue", "lbfgs_prologue_t"))
+                for shape in RESET_SHAPES]
+        made += [(shape, ("push_two_loop",)) for shape in PUSH_SHAPES]
+        made += [(shape, ("two_loop",)) for shape in TWO_LOOP_SHAPES]
+        for (b, n), names in made:
+            out = made_up_parity(mods, dname, b, n, names)
+            record.setdefault(f"made_up_parity_{dname}_{b}x{n}", {}).update(
+                out)
+            for name, r in out.items():
+                check_parity(name, dname, b, n, r, max_abs_err)
+                if "history_resets" in r:
+                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
+                        f"inputs: {r['history_resets']} invalid-descent "
+                        "history resets")
+        for b, n in PATH_B_SHAPES:
+            t0 = time.perf_counter()
+            r = path_b_parity(
+                mods, obj, start(b, n, dtype), dname,
+                path_b_stopping(mods, obj, n, dtype,
+                                PATH_B_CUT.get((b, n), 0)))
+            r["cover"]["seconds"] = time.perf_counter() - t0
+            record[f"path_b_parity_{dname}_{b}x{n}"] = r
+            check_parity("push_two_loop", dname, b, n, r, max_abs_err)
+            log(f"[parity] path B {dname} ({b}, {n}) covered: "
+                + json.dumps(r["cover"]))
+            if min(r["cover"]["fired"], r["cover"]["full_history_pushes"],
+                   r["cover"]["valid_off_lane_calls"]) <= 0:
+                raise AssertionError(f"path B parity ({b}, {n}): {r}")
         b, n = EDGE_SHAPE
         x0 = start(b, n, dtype)
         x0[:EDGE_LANES] = 1.0
@@ -322,6 +445,30 @@ def main() -> int:
             main_launches[name] += count
         nested_rows.append(row)
 
+    path_a_rows = []
+    for b, n in PATH_A_SHAPES:
+        row = nested_main(mods, obj, start(b, n, torch.float32), solver,
+                          stop32, batch_minor=True)
+        for name, count in row["launches"].items():
+            main_launches[name] += count
+        path_a_rows.append(row)
+    record["path_a"] = path_a_rows
+
+    path_b_rows = []
+    for b, n in PATH_B_SHAPES:
+        dtype = getattr(torch, PATH_B_DTYPE[(b, n)])
+        row = path_b_main(
+            mods, obj, start(b, n, dtype), solver,
+            path_b_stopping(mods, obj, n, dtype, PATH_B_CUT.get((b, n), 0)))
+        for name, count in row["launches"].items():
+            main_launches[name] += count
+        path_b_rows.append(row)
+    record["path_b"] = path_b_rows
+
+    record["path_c"] = path_c_main(mods)
+    for name, count in record["path_c"]["launches"].items():
+        main_launches[name] += count
+
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
         b, n = row["shape"]
@@ -360,10 +507,37 @@ def main() -> int:
         log("[nested] " + json.dumps(row))
     record["nested"] = nested_rows
 
+    routing_rows = []
+    for b, n in T_SHAPES:
+        known = next((r for r in nested_rows
+                      if tuple(r["shape"]) == (b, n)), None)
+        routing_rows.append(routing(
+            mods, obj, start(b, n, torch.float32), solver, stop32, known))
+    record["routing"] = routing_rows
+
+    op_rows = {"push_two_loop": [op_timing(mods, "push_two_loop", b, n)
+                                 for b, n in PUSH_SHAPES],
+               "two_loop": [op_timing(mods, "two_loop", b, n)
+                            for b, n in TWO_LOOP_SHAPES]}
+    for name, rows in op_rows.items():
+        for r in rows:
+            log(f"[time] {name} {tuple(r['shape'])} float32 on made-up "
+                f"inputs: kernel {r['ms']:.4f} ms/launch, plain "
+                f"{r['plain_ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}); starved timed calls "
+                f"{r['starved_calls']} of {r['padded_calls']}")
+    record["op_timing"] = op_rows
+
     # 6. report ---------------------------------------------------------------
     head = next(r for r in shapes if tuple(r["shape"]) == HEADLINE_SHAPE)
     nhead = next(r for r in nested_rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     timed = {"flat_trip": head, **nhead["kernels"]}
+    timed["lbfgs_prologue_t"] = next(
+        r for r in routing_rows if tuple(r["shape"]) == HEADLINE_SHAPE
+    )["minor"]
+    for name, rows in op_rows.items():
+        timed[name] = next(
+            r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     kernels = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -536,10 +710,12 @@ def _clone_record(rec):
     return type(rec)(**{k: v.clone() for k, v in vars(rec).items()})
 
 
-def nested_parity(mods, obj, x0, dname, stop=None):
+def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
     """During a plain-version solve of the iteration-granular path, run to
-    its end under ``stop`` (the default criteria if None), every call's inputs go through the kernel and through the plain
-    version, and every output is compared.  Returns the figures of each of
+    its end under ``stop`` (the default criteria if None), every call's
+    inputs go through the kernel and through the plain version, and every
+    output is compared.  ``batch_minor`` takes the loop on the batch-minor
+    history (``lbfgs_prologue_t``).  Returns the figures of each of
     the three kernels, and what the compared calls covered: lane-calls on
     done lanes (each kernel's early return), pushes into a full history,
     history resets, non-finite search results, and the statuses on which
@@ -547,10 +723,15 @@ def nested_parity(mods, obj, x0, dname, stop=None):
     import torch
 
     cns, fl, fstep = mods.cns, mods.fl, mods.fstep
-    b = x0.shape[0]
+    b, n = x0.shape
+    kernels, plain, pname = mods.nested(batch_minor)
     cmps = {name: Compare(RTOL[dname], {"ls_dir": DIRECTION_RTOL[dname]})
-            for name in mods.kernels}
-    launches0 = {name: fn.launches for name, fn in mods.kernels.items()}
+            for name in kernels}
+    launches0 = {name: fn.launches for name, fn in kernels.items()}
+
+    def rows(hist):
+        """A history, in either layout, with the lanes leading."""
+        return hist.t() if batch_minor else hist.reshape(b, -1)
     cover = {"prologue_done_lane_calls": 0, "full_history_pushes": 0,
              "prologue_history_resets": 0, "mt_trip_idle_lane_calls": 0,
              "epilogue_done_lane_calls": 0, "epilogue_stall_resets": 0,
@@ -559,20 +740,22 @@ def nested_parity(mods, obj, x0, dname, stop=None):
 
     def prologue(x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done):
         k = [t.clone() for t in (s_mem, y_mem, count, gamma)]
-        count0, newest0 = count.clone(), s_mem[:, -1].clone()
-        kd, ka, kg, *_ = mods.kernels["lbfgs_prologue"](
+        count0, newest0 = count.clone(), rows(s_mem)[:, -n:].clone()
+        kd, ka, kg, *_ = kernels[pname](
             x, g, *k, s_new, y_new, valid, done)
-        out = fstep.lbfgs_prologue_reference(
+        out = plain[pname](
             x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done)
         torch.cuda.synchronize()
-        cmps["lbfgs_prologue"].add(b, {"mem_count": (k[2], count)}, {
+        cmps[pname].add(b, {"mem_count": (k[2], count)}, {
             "ls_dir": (kd, out[0], True), "alpha_init": (ka, out[1], False),
-            "dginit": (kg, out[2], False), "s_memory": (k[0], s_mem, True),
-            "y_memory": (k[1], y_mem, True), "gamma": (k[3], gamma, False),
+            "dginit": (kg, out[2], False),
+            "s_memory": (rows(k[0]), rows(s_mem), True),
+            "y_memory": (rows(k[1]), rows(y_mem), True),
+            "gamma": (k[3], gamma, False),
         })
         cover["prologue_done_lane_calls"] += int(done.sum())
         cover["full_history_pushes"] += int(
-            ((count0 >= M) & (s_mem[:, -1] != newest0).any(1)).sum())
+            ((count0 >= M) & (rows(s_mem)[:, -n:] != newest0).any(1)).sum())
         cover["prologue_history_resets"] += int((count < count0).sum())
         return out
 
@@ -580,7 +763,7 @@ def nested_parity(mods, obj, x0, dname, stop=None):
         k = st.clone()
         cover["mt_trip_idle_lane_calls"] += int(
             (st.si[:, fl._I_INFO] != 0).sum())
-        mods.kernels["mt_trip"](x0_, sdir, f_t, g_t, k, max_fev)
+        kernels["mt_trip"](x0_, sdir, f_t, g_t, k, max_fev)
         fl.mt_trip_reference(x0_, sdir, f_t, g_t, st, max_fev)
         torch.cuda.synchronize()
         cmps["mt_trip"].add(b, {"si": (k.si, st.si)}, {
@@ -594,7 +777,7 @@ def nested_parity(mods, obj, x0, dname, stop=None):
         kc, ksp, kyp, kpv = (t.clone() for t in (count, s_pend, y_pend,
                                                  pvalid))
         count0 = count.clone()
-        mods.kernels["lbfgs_epilogue"](
+        kernels["lbfgs_epilogue"](
             ks, x_ls, f_ls, g_ls, ls_nfev, kc, ksp, kyp, kpv, done, kp, crit)
         out = fstep.lbfgs_epilogue_reference(
             state, x_ls, f_ls, g_ls, ls_nfev, count, s_pend, y_pend, pvalid,
@@ -630,15 +813,15 @@ def nested_parity(mods, obj, x0, dname, stop=None):
                 cover["ended_on_status"].get(name, 0) + lanes)
         return out
 
-    with mods.swapped({"lbfgs_prologue": prologue, "mt_trip": trip,
-                       "lbfgs_epilogue": epilogue}):
+    with mods.layout(batch_minor), mods.swapped({
+            pname: prologue, "mt_trip": trip, "lbfgs_epilogue": epilogue}):
         res = cns.minimize_batched(
             obj, x0, cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV),
             stop or cns.default_stopping(x0.dtype), trace=1)
     cover["iterations"] = int(res.progress.num_iterations.max())
     cover["trips"] = res.trips
     return {name: cmps[name].result(fn.launches - launches0[name])
-            for name, fn in mods.kernels.items()}, cover
+            for name, fn in kernels.items()}, cover
 
 
 def check_cover(cover, b, n, edge=False) -> None:
@@ -658,18 +841,26 @@ def check_cover(cover, b, n, edge=False) -> None:
             f"compared calls: {cover['ended_on_status']}")
 
 
-def nested_main(mods, obj, x0, solver, stop) -> dict:
+def nested_main(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     """The iteration-granular path through its entry points: a traced solve
     cut by ``max_iterations``, ``resume`` to the end, and a warm start with
     ``internals=`` and ``trace=``.  The launch counts must match the
     iteration and trip counts; the resumed solve must equal the
     uninterrupted one bit for bit on at least 99% of lanes; statuses are
     held against the same solves through
-    the plain versions on the card, and against the flat path."""
+    the plain versions on the card, and against the flat path.
+    ``batch_minor`` is path A: the same on the batch-minor history, with
+    the statuses also held against the batch-major loop's."""
+    with mods.layout(batch_minor):
+        return _nested_main(mods, obj, x0, solver, stop, batch_minor)
+
+
+def _nested_main(mods, obj, x0, solver, stop, batch_minor) -> dict:
     import torch
 
     cns = mods.cns
     b, n = x0.shape
+    kernels, plain_fns, pname = mods.nested(batch_minor)
     cut_stop = stop.replace(max_iterations=NESTED_CUT)
 
     def run():
@@ -678,7 +869,7 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
         return cut, cns.resume(obj, cut, solver, stop, trace=NESTED_TRACE)
 
     torch.cuda.synchronize()
-    for fn in mods.kernels.values():
+    for fn in mods.wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     cut, res = run()
@@ -686,7 +877,12 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
                                 internals=res.internals, trace=NESTED_TRACE)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in mods.kernels.items()}
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    other = {name: fn.launches for name, fn in mods.wrappers.items()
+             if name not in kernels and fn.launches}
+    if other:
+        raise AssertionError(
+            f"nested ({b}, {n}): kernels of another path ran: {other}")
 
     iterations = (
         int(cut.progress.num_iterations.max())
@@ -694,7 +890,7 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
                - cut.progress.num_iterations).max())
         + int(warm.progress.num_iterations.max()))
     trips = cut.trips + res.trips + warm.trips
-    want = {"lbfgs_prologue": iterations, "mt_trip": trips,
+    want = {pname: iterations, "mt_trip": trips,
             "lbfgs_epilogue": iterations}
     if launches != want or min(launches.values()) <= 0:
         raise AssertionError(
@@ -722,9 +918,12 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
                  & ((full.trace.value == traced)
                     | (full.trace.value.isnan() & traced.isnan())).all(1))
     resumed_equal = float(same_lane.float().mean())
-    with mods.swapped(mods.plain):
+    with mods.swapped(plain_fns):
         _, plain = run()
     flat = cns.minimize_batched(obj, x0, solver, stop)
+    if batch_minor:
+        with mods.layout(False):
+            _, major = run()
 
     def against(other):
         agree = float((res.progress.status == other.progress.status)
@@ -737,6 +936,7 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
     flat_agree, flat_dnfev = against(flat)
     row = {
         "shape": [b, n], "dtype": "float32", "launches": launches,
+        "layout": "batch-minor" if batch_minor else "batch-major",
         "iterations": iterations, "trips": trips,
         "cut_iterations": int(cut.progress.num_iterations.max()),
         "resumed_equals_uninterrupted": resumed_equal,
@@ -748,7 +948,20 @@ def nested_main(mods, obj, x0, solver, stop) -> dict:
         "warm_iterations": int(warm.progress.num_iterations.max()),
         "main_wall_s": wall,
     }
-    log(f"[main] nested ({b}, {n}) float32: cut at "
+    if batch_minor:
+        row["major_status_agreement"], row["major_mean_nfev_diff"] = against(
+            major)
+        if not isinstance(res.internals, mods.lb.LbfgsInternals):
+            raise AssertionError("path A returned batch-minor internals")
+        log(f"[main] path A ({b}, {n}): against the batch-major loop: "
+            f"status agreement {row['major_status_agreement']:.4f}, mean "
+            f"nfev diff {row['major_mean_nfev_diff']:.3f}")
+        if (row["major_status_agreement"] < 0.99
+                or row["major_mean_nfev_diff"] >= 3.0):
+            raise AssertionError(
+                f"path A ({b}, {n}) disagrees with the batch-major loop: "
+                f"{row}")
+    log(f"[main] nested {row['layout']} ({b}, {n}) float32: cut at "
         f"{row['cut_iterations']} iterations, resumed and warm-started: "
         f"{iterations} iterations, {trips} search trips, launches "
         f"{launches}; resumed equals uninterrupted on "
@@ -809,14 +1022,23 @@ class TimedObjective:
 KERNEL_PAD, PLAIN_PAD = 20_000_000, 100_000_000
 
 
-def nested_timing(mods, obj, x0, solver, stop) -> dict:
+def nested_timing(mods, obj, x0, solver, stop, batch_minor=False,
+                  with_plain=True) -> dict:
     """Device time per call of the three nested-path kernels and of their
     plain versions (spin-padded solves cut at NESTED_TIMED_ITERATIONS, in
     the order plain, kernel, kernel, plain), and the least time each call's
-    data needs on this card."""
+    data needs on this card.  ``batch_minor`` times the loop on the
+    batch-minor history; ``with_plain=False`` leaves the plain solves out."""
+    with mods.layout(batch_minor):
+        return _nested_timing(mods, obj, x0, solver, stop, batch_minor,
+                              with_plain)
+
+
+def _nested_timing(mods, obj, x0, solver, stop, batch_minor, with_plain):
     import torch
 
     cns = mods.cns
+    kernels, plain_fns, _ = mods.nested(batch_minor)
     cut = stop.replace(max_iterations=NESTED_TIMED_ITERATIONS)
 
     def solve(fns, pad):
@@ -835,13 +1057,17 @@ def nested_timing(mods, obj, x0, solver, stop) -> dict:
         }
 
     runs = {"plain": [], "kernel": []}
-    for which in ("plain", "kernel", "kernel", "plain"):
+    order = ("plain", "kernel", "kernel", "plain") if with_plain else (
+        "kernel", "kernel")
+    for which in order:
         plain = which == "plain"
-        runs[which].append(solve(mods.plain if plain else mods.kernels,
+        runs[which].append(solve(plain_fns if plain else kernels,
                                  PLAIN_PAD if plain else KERNEL_PAD))
-    work = nested_work(mods, obj, x0, solver, cut)
+    work = nested_work(mods, obj, x0, solver, cut, batch_minor)
 
     def mean(which, key):
+        if not runs[which]:
+            return None
         return sum(r[key] for r in runs[which]) / len(runs[which])
 
     every = runs["plain"] + runs["kernel"]
@@ -850,7 +1076,7 @@ def nested_timing(mods, obj, x0, solver, stop) -> dict:
             "ms": mean("kernel", name), "plain_ms": mean("plain", name),
             "ms_runs": [r[name] for r in runs["kernel"]],
             **work[name],
-        } for name in mods.kernels},
+        } for name in kernels},
         "eval_ms": mean("kernel", "eval_ms"),
         "timed_iterations": NESTED_TIMED_ITERATIONS,
         "starved_calls": sum(r["starved"] for r in every),
@@ -858,7 +1084,7 @@ def nested_timing(mods, obj, x0, solver, stop) -> dict:
     }
 
 
-def nested_work(mods, obj, x0, solver, stop) -> dict:
+def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     """Bytes and operations the calls of one nested solve need, lane by
     lane, each input read once and each output written once.
 
@@ -876,8 +1102,8 @@ def nested_work(mods, obj, x0, solver, stop) -> dict:
     n = x0.shape[1]
     w = x0.element_size()
     eps = torch.finfo(x0.dtype).eps
-    tot = {name: {"bytes": 0.0, "ops": 0.0, "calls": 0}
-           for name in mods.kernels}
+    kernels, _, pname = mods.nested(batch_minor)
+    tot = {name: {"bytes": 0.0, "ops": 0.0, "calls": 0} for name in kernels}
 
     def add(name, byts, ops):
         tot[name]["bytes"] += float(byts.sum())
@@ -896,10 +1122,10 @@ def nested_work(mods, obj, x0, solver, stop) -> dict:
         hist_write = torch.where(
             accept, torch.where(full, 2 * M * n, 2 * n), 0)
         elems = torch.where(live, 5 * n + hist_read + hist_write, n)
-        add("lbfgs_prologue",
+        add(pname,
             elems * w + torch.where(live, 4 * w + 2 * 4 + 2, 2 * w + 1),
             torch.where(live, 14 * n + 10 * n * c1, 0))
-        return mods.kernels["lbfgs_prologue"](
+        return kernels[pname](
             x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done)
 
     def trip(x0_, sdir, f_t, g_t, st, max_fev):
@@ -907,7 +1133,7 @@ def nested_work(mods, obj, x0, solver, stop) -> dict:
         scal = (2 * fl._NF + 1) * w + 2 * fl._NI * 4
         add("mt_trip", torch.where(active, 5 * n * w + scal, 4),
             torch.where(active, 4 * n, 0))
-        mods.kernels["mt_trip"](x0_, sdir, f_t, g_t, st, max_fev)
+        kernels["mt_trip"](x0_, sdir, f_t, g_t, st, max_fev)
 
     def epilogue(state, x_ls, f_ls, g_ls, ls_nfev, count, s_pend, y_pend,
                  pvalid, done, progress, crit):
@@ -915,12 +1141,12 @@ def nested_work(mods, obj, x0, solver, stop) -> dict:
         scal = (2 + 3 + 2 * 8) * w + 12 * 4 + 2
         add("lbfgs_epilogue", torch.where(live, 8 * n * w + scal, 1),
             torch.where(live, 8 * n, 0))
-        return mods.kernels["lbfgs_epilogue"](
+        return kernels["lbfgs_epilogue"](
             state, x_ls, f_ls, g_ls, ls_nfev, count, s_pend, y_pend, pvalid,
             done, progress, crit)
 
-    with mods.swapped({"lbfgs_prologue": prologue, "mt_trip": trip,
-                       "lbfgs_epilogue": epilogue}):
+    with mods.layout(batch_minor), mods.swapped({
+            pname: prologue, "mt_trip": trip, "lbfgs_epilogue": epilogue}):
         cns.minimize_batched(obj, x0, solver, stop, trace=1)
     dname = str(x0.dtype).split(".")[1]
     out = {}
@@ -1093,6 +1319,408 @@ def trip_work(fs, obj, x0, stop) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
+
+
+def made_up(b, n, dtype, dev, seed=SEED):
+    """Made-up inputs for the prologue and two-loop kernels, from a seed:
+    histories as a solve leaves them (``y`` near ``s``), with counts 0,
+    partly filled and full, rows whose ``s.y`` is 0 (the recursion skips
+    them), pending pairs that the curvature gate rejects, zero pairs, lanes
+    with ``valid`` off, done lanes, and live lanes with a zero or a NaN
+    gradient (no descent direction: the history resets)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=dev, dtype=dt)
+
+    lanes = np.arange(b)
+    count = rng.integers(0, M + 1, b)
+    count[lanes % 7 == 0] = M
+    count[lanes % 7 == 1] = 0
+    s = 0.1 * rng.standard_normal((b, M, n))
+    y = s + 0.05 * rng.standard_normal((b, M, n))
+    y[lanes % 11 == 3, 0] = 0.0  # |s.y| < eps on the oldest row
+    s_new = 0.1 * rng.standard_normal((b, n))
+    y_new = s_new + 0.02 * rng.standard_normal((b, n))
+    y_new[lanes % 5 == 2] *= -1.0  # negative curvature: rejected
+    s_new[lanes % 13 == 4] = 0.0
+    y_new[lanes % 13 == 4] = 0.0
+    g = rng.standard_normal((b, n))
+    done = lanes % 4 == 1
+    g[lanes % 16 == 2] = 0.0
+    g[lanes % 64 == 6, 0] = np.nan
+    return {
+        "x": t(rng.standard_normal((b, n))), "g": t(g), "s": t(s), "y": t(y),
+        "count": t(count, torch.int32), "gamma": t(rng.uniform(0.5, 2.0, b)),
+        "s_new": t(s_new), "y_new": t(y_new),
+        "valid": t(rng.random(b) < 0.8, torch.bool),
+        "done": t(done, torch.bool),
+    }
+
+
+def made_up_parity(mods, dname, b, n, names) -> dict:
+    """Each kernel of ``names`` against its plain version on one call with
+    made-up inputs; the prologues must have reset histories, the fused push
+    must have kept every bit of its ``valid = False`` lanes."""
+    import torch
+
+    dev = torch.device("cuda")
+    a = made_up(b, n, getattr(torch, dname), dev)
+    ft = mods.ft
+    out = {}
+
+    def compare(name, ints, floats):
+        cmp = Compare(RTOL[dname], {"ls_dir": DIRECTION_RTOL[dname],
+                                    "direction": DIRECTION_RTOL[dname]})
+        torch.cuda.synchronize()
+        cmp.add(b, ints, floats)
+        out[name] = cmp.result(1)
+
+    for name in names:
+        if name in ("lbfgs_prologue", "lbfgs_prologue_t"):
+            minor = name == "lbfgs_prologue_t"
+            conv = ft.history_rows_to_t if minor else torch.clone
+            rows = (lambda h: h.t()) if minor else (
+                lambda h: h.reshape(b, -1))
+            k = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
+                 a["gamma"].clone()]
+            p = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
+                 a["gamma"].clone()]
+            rest = (a["s_new"], a["y_new"], a["valid"], a["done"])
+            kd, ka, kg, *_ = mods.wrappers[name](a["x"], a["g"], *k, *rest)
+            pd, pa, pg, *_ = mods.plain_all[name](a["x"], a["g"], *p, *rest)
+            compare(name, {"mem_count": (k[2], p[2])}, {
+                "ls_dir": (kd, pd, True), "alpha_init": (ka, pa, False),
+                "dginit": (kg, pg, False),
+                "s_memory": (rows(k[0]), rows(p[0]), True),
+                "y_memory": (rows(k[1]), rows(p[1]), True),
+                "gamma": (k[3], p[3], False)})
+            resets = int(((k[2] == 0) & (a["count"] > 0) & ~a["done"]).sum())
+            out[name]["history_resets"] = resets
+            frozen = all(bool((rows(new)[a["done"]] == old.reshape(b, -1)[
+                a["done"]]).all()) for new, old in zip(k[:2], (a["s"],
+                                                               a["y"])))
+            if resets <= 0 or not frozen or not bool(
+                    (kd[a["done"]] == 0).all()):
+                raise AssertionError(
+                    f"{name} {dname} ({b}, {n}) on made-up inputs: "
+                    f"{resets} history resets, done lanes frozen: {frozen}")
+        elif name == "push_two_loop":
+            k = [t.clone() for t in (a["s"], a["y"], a["count"], a["gamma"])]
+            p = [t.clone() for t in (a["s"], a["y"], a["count"], a["gamma"])]
+            rest = (a["s_new"], a["y_new"], a["valid"])
+            kd, *_ = mods.wrappers[name](a["g"], *k, *rest)
+            pd, *_ = mods.plain_all[name](a["g"], *p, *rest)
+            compare(name, {"mem_count": (k[2], p[2])}, {
+                "direction": (kd, pd, True), "s_memory": (k[0], p[0], True),
+                "y_memory": (k[1], p[1], True), "gamma": (k[3], p[3], False)})
+            off = ~a["valid"]
+            kept = all(bool((new[off] == old[off]).all()) for new, old in zip(
+                k, (a["s"], a["y"], a["count"], a["gamma"])))
+            if not kept or not bool(off.any()):
+                raise AssertionError(
+                    f"push_two_loop {dname} ({b}, {n}): a lane with valid "
+                    "off did not keep every bit")
+        elif name == "two_loop":
+            args = (a["g"], a["s"], a["y"], a["count"], a["gamma"])
+            kd = mods.wrappers[name](*args)
+            pd = mods.plain_all[name](*args)
+            compare(name, {"mem_count": (a["count"], a["count"])},
+                    {"direction": (kd, pd, True)})
+    return out
+
+
+def path_b_stopping(mods, obj, n, dtype, cut=0):
+    """Path B's criteria: the default ones with the Hessian-condition
+    criterion at PATH_B_FACTOR times cond(H) at the optimum (1, ..., 1)."""
+    import torch
+
+    cns = mods.cns
+    opt = torch.ones((1, n), dtype=torch.float64,
+                     device=torch.device("cuda"))
+    cond = float(cns.utils.frobenius_condition(obj.hessian(opt))[0])
+    stop = cns.default_stopping(dtype).replace(
+        condition_hessian=PATH_B_FACTOR * cond)
+    return stop.replace(max_iterations=cut) if cut else stop
+
+
+def path_b_parity(mods, obj, x0, dname, stop) -> dict:
+    """``push_two_loop`` against its plain version at every call of a
+    plain-version path-B solve."""
+    import torch
+
+    cns = mods.cns
+    b = x0.shape[0]
+    cmp = Compare(RTOL[dname], {"direction": DIRECTION_RTOL[dname]})
+    launches0 = mods.wrappers["push_two_loop"].launches
+    cover = {"valid_off_lane_calls": 0, "full_history_pushes": 0}
+
+    def push(g, s_mem, y_mem, count, gamma, s_new, y_new, valid):
+        k = [t.clone() for t in (s_mem, y_mem, count, gamma)]
+        count0, newest0 = count.clone(), s_mem[:, -1].clone()
+        kd, *_ = mods.wrappers["push_two_loop"](g, *k, s_new, y_new, valid)
+        out = mods.plain_all["push_two_loop"](
+            g, s_mem, y_mem, count, gamma, s_new, y_new, valid)
+        torch.cuda.synchronize()
+        cmp.add(b, {"mem_count": (k[2], count)}, {
+            "direction": (kd, out[0], True), "s_memory": (k[0], s_mem, True),
+            "y_memory": (k[1], y_mem, True), "gamma": (k[3], gamma, False)})
+        cover["valid_off_lane_calls"] += int((~valid).sum())
+        cover["full_history_pushes"] += int(
+            ((count0 >= M) & (s_mem[:, -1] != newest0).any(1)).sum())
+        return out
+
+    with mods.swapped({"push_two_loop": push,
+                       "mt_trip": mods.plain_all["mt_trip"]}):
+        res = cns.minimize_batched(
+            obj, x0, cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV), stop)
+    cover["iterations"] = int(res.progress.num_iterations.max())
+    cover["fired"] = int((res.progress.status == int(
+        cns.Status.HESSIAN_CONDITION_VIOLATION)).sum())
+    r = cmp.result(mods.wrappers["push_two_loop"].launches - launches0)
+    r["cover"] = cover
+    return r
+
+
+def path_b_main(mods, obj, x0, solver, stop) -> dict:
+    """Path B through its entry points: ``minimize_batched`` of a
+    second-mode objective with the Hessian-condition criterion on (traced,
+    and fresh), and ``minimize`` for a batch of one.  The criterion must
+    fire on some lanes and not on others; ``push_two_loop`` must launch once
+    per iteration and ``mt_trip`` once per search trip, and no other kernel;
+    statuses are held against the same solve through the plain versions."""
+    import torch
+
+    cns = mods.cns
+    b, n = x0.shape
+    hcv = int(cns.Status.HESSIAN_CONDITION_VIOLATION)
+    torch.cuda.synchronize()
+    for fn in mods.wrappers.values():
+        fn.launches = 0
+    mods.fs.flat_trip.launches = 0
+    t0 = time.perf_counter()
+    res = cns.minimize_batched(obj, x0, solver, stop, trace=NESTED_TRACE)
+    fresh = cns.minimize_batched(obj, x0, solver, stop)
+    one = cns.minimize(obj, x0[0], solver, stop)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in mods.wrappers.items()
+                if fn.launches}
+    iterations = sum(int(r.progress.num_iterations.max())
+                     for r in (res, fresh, one))
+    trips = res.trips + fresh.trips + one.trips
+    want = {"push_two_loop": iterations, "mt_trip": trips}
+    if launches != want or mods.fs.flat_trip.launches:
+        raise AssertionError(
+            f"path B ({b}, {n}): launches {launches} (flat_trip "
+            f"{mods.fs.flat_trip.launches}), expected {want}")
+    fired = int((res.progress.status == hcv).sum())
+    if not 0 < fired < b:
+        raise AssertionError(
+            f"path B ({b}, {n}): the criterion fired on {fired} of {b} lanes")
+    cond = res.progress.condition_hessian
+    if not bool((cond[res.progress.status == hcv]
+                 > stop.condition_hessian).all()):
+        raise AssertionError("a lane stopped on cond(H) below the criterion")
+    if not bool((fresh.progress.status == res.progress.status).all()):
+        raise AssertionError("path B: traced and fresh solves disagree")
+    check_result(res, b, n, M)
+    if one.state.x.shape != (n,) or int(one.progress.status) == 0:
+        raise AssertionError("path B: minimize did not finish")
+    with mods.swapped(mods.plain_b):
+        plain = cns.minimize_batched(obj, x0, solver, stop)
+    agree = float((res.progress.status == plain.progress.status)
+                  .float().mean())
+    dnfev = abs(float(res.state.nfev.float().mean())
+                - float(plain.state.nfev.float().mean()))
+    dname = str(x0.dtype).split(".")[1]
+    row = {
+        "shape": [b, n], "dtype": dname, "launches": launches,
+        "iterations": iterations, "trips": trips,
+        "condition_hessian": stop.condition_hessian,
+        "max_iterations": stop.max_iterations,
+        "fired_lanes": fired, "status_agreement": agree,
+        "mean_nfev_diff": dnfev,
+        "mean_nfev": float(res.state.nfev.float().mean()),
+        "converged_share": converged_share(res, cns), "main_wall_s": wall,
+    }
+    log(f"[main] path B ({b}, {n}) {dname}: criterion "
+        f"{stop.condition_hessian:.4g}, fired on {fired} of {b} lanes; "
+        f"{iterations} iterations, {trips} search trips, launches "
+        f"{launches}; against the plain versions: status agreement "
+        f"{agree:.4f}, mean nfev diff {dnfev:.3f}; wall {wall:.3f} s")
+    if agree < 0.99 or dnfev >= 3.0:
+        raise AssertionError(f"path B ({b}, {n}) disagrees with plain: {row}")
+    return row
+
+
+def path_c_main(mods) -> dict:
+    """Path C: the public op ``two_loop_direction`` on the card, batched at
+    every shape and once un-batched.  One launch per call; each result is
+    finite where its gradient is and agrees with the plain version in
+    float64 on the same inputs within DIRECTION_RTOL of float32."""
+    import torch
+
+    cns = mods.cns
+    dev = torch.device("cuda")
+    cases = [made_up(b, n, torch.float32, dev) for b, n in TWO_LOOP_SHAPES]
+    torch.cuda.synchronize()
+    for fn in mods.wrappers.values():
+        fn.launches = 0
+    outs = [cns.solvers.two_loop_direction(
+        a["g"], a["s"], a["y"], a["count"], a["gamma"]) for a in cases]
+    a = cases[0]
+    single = cns.solvers.two_loop_direction(
+        a["g"][0], a["s"][0], a["y"][0], a["count"][0], a["gamma"][0])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in mods.wrappers.items()
+                if fn.launches}
+    if launches != {"two_loop": len(cases) + 1}:
+        raise AssertionError(f"path C: launches {launches}")
+    worst = 0.0
+    for a, out in zip(cases, outs):
+        ref = mods.plain_all["two_loop"](
+            a["g"].double(), a["s"].double(), a["y"].double(), a["count"],
+            a["gamma"].double())
+        fin = ref.isfinite().all(1)
+        if tuple(out.shape) != tuple(a["g"].shape) or not bool(
+                (out.isfinite().all(1) == fin).all()):
+            raise AssertionError("path C: wrong shape or non-finite values")
+        err = ((out.double() - ref)[fin].abs().amax(1)
+               / ref[fin].abs().amax(1).clamp_min(1e-300))
+        worst = max(worst, float(err.max()))
+    if not bool((single == outs[0][0]).all()):
+        raise AssertionError("path C: the un-batched call differs")
+    if worst > DIRECTION_RTOL["float32"]:
+        raise AssertionError(f"path C: error {worst:.3e} against float64")
+    log(f"[main] path C: two_loop_direction at {TWO_LOOP_SHAPES} and one "
+        f"un-batched call, launches {launches}, worst error against the "
+        f"float64 plain version {worst:.3e}")
+    return {"launches": launches, "max_scaled_err_vs_float64": worst}
+
+
+def op_timing(mods, name, b, n) -> dict:
+    """Device time per call of ``push_two_loop`` or ``two_loop`` and of its
+    plain version on made-up float32 inputs (spin-padded, fresh copies of
+    the inputs for every call, in the order plain, kernel, kernel, plain),
+    and the least time the call's data needs on this card: a lane reads g
+    (and the pair), reads the history rows its recursion uses, writes the
+    rows that change (one, or all m when a full history shifts) and the
+    direction."""
+    import torch
+
+    dev = torch.device("cuda")
+    a = made_up(b, n, torch.float32, dev)
+    w = 4
+    eps = torch.finfo(torch.float32).eps
+    c0 = a["count"].long()
+    if name == "push_two_loop":
+        sy, s2, y2 = ((p * q).sum(1) for p, q in (
+            (a["s_new"], a["y_new"]), (a["s_new"], a["s_new"]),
+            (a["y_new"], a["y_new"])))
+        accept = a["valid"] & (sy > eps * s2.sqrt() * y2.sqrt())
+        full = c0 >= M
+        c1 = torch.where(accept & ~full, c0 + 1, c0)
+        hist_read = 2 * n * (c1 - accept.long()).clamp(min=0)
+        hist_write = torch.where(
+            accept, torch.where(full, 2 * M * n, 2 * n), 0)
+        byts = (4 * n + hist_read + hist_write) * w + 2 * w + 2 * 4 + 1
+        ops = 6 * n + 10 * n * c1
+        keys = ("g", "s", "y", "count", "gamma", "s_new", "y_new", "valid")
+    else:
+        byts = (2 * n + 2 * n * c0) * w + w + 4
+        ops = n + 10 * n * c0
+        keys = ("g", "s", "y", "count", "gamma")
+
+    starved = [0]
+
+    def run(fn, pad):
+        spans = []
+        for _ in range(OP_TIMED_CALLS):
+            args = [a[k].clone() for k in keys]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(pad)
+            start.record()
+            fn(*args)
+            starved[0] += bool(start.query())
+            end.record()
+            spans.append((start, end))
+        torch.cuda.synchronize()
+        return sum(p.elapsed_time(q) for p, q in spans) / len(spans)
+
+    runs = {"plain": [], "kernel": []}
+    run(mods.wrappers[name], KERNEL_PAD)  # warm up
+    for which in ("plain", "kernel", "kernel", "plain"):
+        plain = which == "plain"
+        runs[which].append(run(
+            mods.plain_all[name] if plain else mods.wrappers[name],
+            PLAIN_PAD if plain else KERNEL_PAD))
+    bytes_ms = float(byts.sum()) / HBM_BYTES_PER_S * 1e3
+    ops_ms = float(ops.sum()) / PEAK_OPS_PER_S["float32"] * 1e3
+    return {
+        "shape": [b, n], "ms": sum(runs["kernel"]) / 2,
+        "plain_ms": sum(runs["plain"]) / 2, "ms_runs": runs["kernel"],
+        "bytes_per_call": float(byts.sum()), "ops_per_call": float(ops.sum()),
+        "starved_calls": starved[0], "padded_calls": 5 * OP_TIMED_CALLS,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+
+
+def routing(mods, obj, x0, solver, stop, major_timing=None) -> dict:
+    """The iteration-granular loop on the two history layouts side by side
+    at one shape: device time per launch of the two prologues (spin-padded
+    solves, as ``nested_timing``) and whole traced solves to the end on the
+    host clock, batch-major, batch-minor, batch-minor, batch-major."""
+    import torch
+
+    cns = mods.cns
+    b, n = x0.shape
+    major = major_timing or nested_timing(mods, obj, x0, solver, stop,
+                                          with_plain=False)
+    minor = nested_timing(mods, obj, x0, solver, stop, batch_minor=True,
+                          with_plain=(b, n) == HEADLINE_SHAPE)
+    walls = {False: [], True: []}
+    results = {}
+    for batch_minor in (False, True, True, False):
+        with mods.layout(batch_minor):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[batch_minor] = cns.minimize_batched(
+                obj, x0, solver, stop, trace=1)
+            torch.cuda.synchronize()
+            walls[batch_minor].append(time.perf_counter() - t0)
+    agree = float((results[True].progress.status
+                   == results[False].progress.status).float().mean())
+    row = {
+        "shape": [b, n], "dtype": "float32",
+        "major": major["kernels"]["lbfgs_prologue"],
+        "minor": minor["kernels"]["lbfgs_prologue_t"],
+        "minor_kernels": minor["kernels"],
+        "major_solve_s_runs": walls[False], "minor_solve_s_runs": walls[True],
+        "major_solve_s": sum(walls[False]) / 2,
+        "minor_solve_s": sum(walls[True]) / 2,
+        "iterations": {
+            "major": int(results[False].progress.num_iterations.max()),
+            "minor": int(results[True].progress.num_iterations.max())},
+        "status_agreement": agree,
+        "starved_calls": minor["starved_calls"] + (
+            0 if major_timing else major["starved_calls"]),
+    }
+    log(f"[routing] ({b}, {n}) float32: lbfgs_prologue "
+        f"{row['major']['ms']:.4f} ms/launch (bound "
+        f"{row['major']['bound_ms']:.4f}), lbfgs_prologue_t "
+        f"{row['minor']['ms']:.4f} ms/launch (bound "
+        f"{row['minor']['bound_ms']:.4f}); traced solve on the host clock: "
+        f"batch-major {row['major_solve_s']:.3f} s {walls[False]}, "
+        f"batch-minor {row['minor_solve_s']:.3f} s {walls[True]}; status "
+        f"agreement {agree:.4f}")
+    return row
 
 
 if __name__ == "__main__":

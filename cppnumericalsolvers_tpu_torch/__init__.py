@@ -3,10 +3,11 @@ cppnumericalsolvers_tpu for NVIDIA Hopper GPUs.
 
 Same surface and names as the JAX package for what is ported: objectives,
 the stopping machine, L-BFGS with the More-Thuente search, and the drivers
-(``minimize``, ``minimize_batched`` with warm start and trace, ``resume``).
-Plain code is PyTorch; the kernels of the batched solves (ops/csrc/*.cu:
-flat_trip, mt_trip, lbfgs_prologue, lbfgs_epilogue) are CUDA C++ built at
-first use.  Entry points run on the card unless the caller passes
+(``minimize``, ``minimize_batched`` with warm start and trace, ``resume``,
+the Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
+batched solves (ops/csrc/*.cu: flat_trip, mt_trip, lbfgs_prologue,
+lbfgs_prologue_t, lbfgs_epilogue, push_two_loop, two_loop) are CUDA C++
+built at first use.  Entry points run on the card unless the caller passes
 ``device="cpu"``.
 """
 
@@ -34,7 +35,7 @@ from .core import (
     resume,
     status_message,
 )
-from . import linesearch, models, ops, solvers
+from . import linesearch, models, ops, solvers, utils
 from .solvers import Lbfgs
 
 __version__ = "0.1.0"
@@ -67,4 +68,5 @@ __all__ = [
     "resume",
     "solvers",
     "status_message",
+    "utils",
 ]

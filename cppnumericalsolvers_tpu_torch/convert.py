@@ -15,6 +15,10 @@ the field names of what it is given:
   ``mem_count`` and ``gamma``) -> the port's :class:`LbfgsInternals`, with
   the history chronological and batch-major ``(B, m, n)`` and no pending
   pair;
+* a whole ``LbfgsInternalsT`` (those four fields and the pending pair) ->
+  the port's :class:`LbfgsInternalsT`: the history batch-minor
+  ``(m * n, B)`` with the JAX package's padding (``n8``, ``B_pad``)
+  stripped, the pending pair carried over;
 * a whole ``MinimizeResult`` (``state``, ``progress``, ``internals``,
   ``trace``, each converted as above) -> the port's
   :class:`MinimizeResult`, which :func:`~.core.driver.resume` continues.
@@ -31,7 +35,7 @@ from .core.callbacks import IterationTrace
 from .core.driver import MinimizeResult
 from .core.objective import FunctionState
 from .core.progress import ProgressState, StoppingCriteria
-from .solvers.lbfgs import LbfgsInternals
+from .solvers.lbfgs import LbfgsInternals, LbfgsInternalsT
 
 __all__ = ["from_jax_numpy", "history_t_to_rows"]
 
@@ -102,6 +106,19 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
         count = np.asarray(fields["mem_count"])
         b = count.shape[0]
         gamma = tensor(fields["gamma"])
+        if "s_pending" in names:
+            def strip(hist_t):
+                rows = history_t_to_rows(hist_t, b, m, n)
+                return tensor(rows.reshape(b, m * n).T)
+
+            return LbfgsInternalsT(
+                s_memory_t=strip(fields["s_memory_t"]),
+                y_memory_t=strip(fields["y_memory_t"]),
+                mem_count=tensor(count, "mem_count"), gamma=gamma,
+                s_pending=tensor(fields["s_pending"]),
+                y_pending=tensor(fields["y_pending"]),
+                pending_valid=tensor(fields["pending_valid"]),
+            )
         return LbfgsInternals(
             s_memory=tensor(history_t_to_rows(fields["s_memory_t"], b, m, n)),
             y_memory=tensor(history_t_to_rows(fields["y_memory_t"], b, m, n)),

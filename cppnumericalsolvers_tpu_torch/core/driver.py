@@ -11,7 +11,14 @@ rule:
   ``resume`` go to the iteration-granular loop here: one loop at batch level
   over ``SolverBase.step_and_update``, which continues while any lane's
   status is CONTINUE (one device-to-host read per iteration) and whose lanes
-  freeze themselves once they stop.
+  freeze themselves once they stop.  Where the solver says so
+  (``supports_batched_native``) the same loop runs the solver's batch-native
+  step on its own storage layout, converted at entry and exit;
+* a solve whose Hessian-condition criterion is on (a second-mode objective
+  and ``stopping.condition_hessian > 0``), or whose solver has no fused
+  update for it, takes that loop with the generic body: ``SolverBase.step``,
+  cond(H) at the new iterate (billed as one evaluation), ``update_progress``
+  and the freeze of done lanes.
 
 ``minimize`` is a batch of one, un-batched on return.  Lanes are
 independent, so the semantics are those of a single solve.
@@ -35,9 +42,10 @@ from .progress import (
     StoppingCriteria,
     default_stopping,
     init_progress,
+    update_progress,
 )
 from .status import Status
-from .tree import tree_map
+from .tree import tree_map, tree_where
 
 __all__ = [
     "SolverBase",
@@ -79,6 +87,36 @@ class SolverBase:
         """One iteration of every lane, convergence machine included, in
         place on ``(state, internals, progress)``; a ``done`` lane keeps
         every bit.  Returns them and the batched evaluations it made."""
+        raise NotImplementedError
+
+    def supports_fused_update(self, objective: Objective) -> bool:
+        """Whether :meth:`step_and_update` (and :meth:`solve_batched`) may
+        replace the generic composition of :meth:`step`,
+        ``update_progress`` and the freeze of done lanes for this
+        objective."""
+        del objective
+        return False
+
+    def supports_batched_native(self, objective: Objective, x0_batch) -> bool:
+        """Whether the iteration-granular loop of this batch runs on the
+        solver's own storage layout: :meth:`to_batch_minor` at entry,
+        :meth:`batched_step_and_update` per iteration, :meth:`to_rows` at
+        exit."""
+        del objective, x0_batch
+        return False
+
+    def step(
+        self,
+        objective: Objective,
+        state: FunctionState,
+        internals: Any,
+        stopping: StoppingCriteria,
+        done: torch.Tensor | None = None,
+    ):
+        """One iteration of every lane without the convergence test.
+        Returns ``(next_state, next_internals, evaluations)``; ``state`` is
+        not changed, ``internals`` is consumed, and a ``done`` lane's
+        internals come back bit-identical."""
         raise NotImplementedError
 
     def default_stopping(self, dtype) -> StoppingCriteria:
@@ -124,12 +162,24 @@ def _solve_loop_batched(
     stopping: StoppingCriteria,
     trace: int = 0,
     callback=None,
+    compute_cond_h: bool = False,
 ) -> MinimizeResult:
     """The iteration-granular loop, shared by warm starts, traced solves
     and :func:`resume`.  It updates ``(state, internals, progress)`` in
-    place, so its callers hand it tensors of their own."""
+    place, so its callers hand it tensors of their own.
+
+    ``compute_cond_h`` makes the Hessian-condition criterion
+    solver-independent: the reference evaluates cond(H) inside
+    ``Progress::Update`` for every second-mode function (progress.h:203-210),
+    paying one Hessian per iteration.  The loop evaluates it here when the
+    criterion is on, billed as one evaluation per iteration."""
     cont = int(Status.CONTINUE)
     b = state.value.shape[0]
+    generic = compute_cond_h or not solver.supports_fused_update(objective)
+    native = not generic and solver.supports_batched_native(
+        objective, state.x)
+    if native:
+        internals = solver.to_batch_minor(internals)
     trace_buf = (
         init_trace(trace, state.value.dtype, (b,), state.value.device)
         if trace > 0 else None
@@ -138,9 +188,16 @@ def _solve_loop_batched(
     # One device-to-host read per iteration: any lane still continuing.
     while bool((progress.status == cont).any()):
         done = progress.status != cont
-        state, internals, progress, n_eval = solver.step_and_update(
-            objective, state, internals, progress, stopping, done
-        )
+        if generic:
+            state, internals, progress, n_eval = _generic_iteration(
+                objective, solver, state, internals, progress, stopping,
+                done, compute_cond_h)
+        else:
+            step = (solver.batched_step_and_update if native
+                    else solver.step_and_update)
+            state, internals, progress, n_eval = step(
+                objective, state, internals, progress, stopping, done
+            )
         trips += n_eval
         if trace_buf is not None:
             trace_buf = record_trace(trace_buf, progress, state)
@@ -156,10 +213,43 @@ def _solve_loop_batched(
                 "f_delta": progress.f_delta.clone(),
                 "status": progress.status.clone(),
             })
+    if native:
+        internals = solver.to_rows(internals)
     return MinimizeResult(
         state=state, progress=progress, internals=internals, trips=trips,
         trace=trace_buf,
     )
+
+
+def _generic_iteration(objective, solver, state, internals, progress,
+                       stopping, done, compute_cond_h):
+    """The generic loop body: the solver's step, cond(H) at the new iterate
+    where asked for, the convergence test, and the freeze of done lanes (the
+    solver freezes its own internals)."""
+    new_state, internals, n_eval = solver.step(
+        objective, state, internals, stopping, done=done)
+    cond_h = None
+    if compute_cond_h:
+        from ..utils.linalg import frobenius_condition
+
+        cond_h = frobenius_condition(objective.hessian(new_state.x))
+        new_state.nfev = new_state.nfev + 1
+    new_progress = update_progress(
+        progress, state, new_state, stopping, mode=objective.mode,
+        condition_hessian=cond_h,
+    )
+    return (tree_where(done, state, new_state), internals,
+            tree_where(done, progress, new_progress), n_eval)
+
+
+def _wants_driver_cond_h(objective: Objective,
+                         stopping: StoppingCriteria) -> bool:
+    """Whether the loop evaluates cond(H) every iteration: only for a
+    second-mode objective with the criterion on.  Paying a Hessian per
+    iteration with the criterion off (the default) would be waste."""
+    from ..utils.linalg import condition_test_enabled
+
+    return objective.mode == "second" and condition_test_enabled(stopping)
 
 
 def _own(tree, device):
@@ -201,7 +291,10 @@ def _solve_batched(objective, x0_batch, solver, stopping, trace, internals,
     if stopping is None:
         stopping = solver.default_stopping(x0.dtype)
     state0 = objective.evaluate(x0.contiguous(), nfev=0)
-    if internals is None and trace == 0 and callback is None:
+    compute_cond_h = _wants_driver_cond_h(objective, stopping)
+    if (internals is None and trace == 0 and callback is None
+            and not compute_cond_h
+            and solver.supports_fused_update(objective)):
         return solver.solve_batched(objective, state0, stopping)
     state0 = _own(state0, device)
     internals0 = (
@@ -211,7 +304,7 @@ def _solve_batched(objective, x0_batch, solver, stopping, trace, internals,
     progress0 = init_progress((x0.shape[0],), x0.dtype, device)
     return _solve_loop_batched(
         objective, solver, state0, internals0, progress0, stopping, trace,
-        callback,
+        callback, compute_cond_h,
     )
 
 
@@ -300,6 +393,6 @@ def resume(
         callback = lambda info: user_callback(_unbatch_info(info))  # noqa: E731
     res = _solve_loop_batched(
         objective, solver, state, internals, progress, stopping, trace,
-        callback,
+        callback, _wants_driver_cond_h(objective, stopping),
     )
     return res if batched else _unbatch_result(res)

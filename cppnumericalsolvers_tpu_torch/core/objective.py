@@ -18,7 +18,7 @@ import functools
 from typing import Callable
 
 import torch
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value, hessian, vmap
 
 __all__ = [
     "DifferentiabilityMode",
@@ -89,6 +89,25 @@ class Objective:
     def batched_value_and_grad(self, x: torch.Tensor):
         """``(B, n) -> ((B,), (B, n))`` in one vmapped call."""
         return self._batched_value_and_grad(x)
+
+    @functools.cached_property
+    def _hessian(self):
+        return hessian(self.fn)
+
+    @functools.cached_property
+    def _batched_hessian(self):
+        return vmap(self._hessian)
+
+    def hessian(self, x: torch.Tensor) -> torch.Tensor:
+        """The dense Hessian at ``x``: ``(n, n)`` for ``(n,)``, ``(B, n, n)``
+        for a ``(B, n)`` batch (one vmapped call).  Needs a second-mode
+        objective (function_base.h:42-46)."""
+        if self.mode != MODE_SECOND:
+            raise ValueError(
+                f"Objective.hessian needs a 'second'-mode objective, got "
+                f"{self.mode!r}."
+            )
+        return self._batched_hessian(x) if x.dim() == 2 else self._hessian(x)
 
     def evaluate(self, x: torch.Tensor, nfev=0) -> FunctionState:
         """A populated FunctionState at ``x`` (one evaluation); ``x`` may

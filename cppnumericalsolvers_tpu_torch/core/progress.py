@@ -181,12 +181,15 @@ def update_progress(
     crit: StoppingCriteria,
     *,
     mode: str = "first",
+    condition_hessian=None,
 ) -> ProgressState:
     """One convergence-test pass; mirrors progress.h:153-327.
 
     ``prev_state`` / ``cur_state`` are :class:`FunctionState`s with the
     populated (value, gradient) invariant.  ``mode='none'`` skips the
-    gradient test.  The Hessian-condition test is not on this slice's path.
+    gradient test.  ``condition_hessian`` is an optional precomputed metric,
+    one per lane, for the Hessian-condition test (progress.h:318-325); it is
+    stored in the record, and None disables the test and stores zero.
     """
     i32 = torch.int32
     value = cur_state.value
@@ -201,6 +204,13 @@ def update_progress(
         gradient_norm = torch.zeros_like(value)
     else:
         gradient_norm = torch.amax(torch.abs(cur_state.gradient), dim=-1)
+
+    if condition_hessian is None:
+        cond_h = torch.zeros_like(value)
+    else:
+        cond_h = torch.broadcast_to(
+            torch.as_tensor(condition_hessian, dtype=dtype,
+                            device=value.device), value.shape)
 
     status = torch.full_like(progress.status, cont)
 
@@ -298,6 +308,15 @@ def update_progress(
             Status.GRADIENT_NORM_VIOLATION,
         )
 
+    # 6. Hessian condition (progress.h:318-325), only when the caller
+    # supplied the metric.
+    if condition_hessian is not None:
+        status = _first(
+            status,
+            (crit.condition_hessian > 0) & (cond_h > crit.condition_hessian),
+            Status.HESSIAN_CONDITION_VIOLATION,
+        )
+
     return ProgressState(
         num_iterations=num_iterations.to(i32),
         x_delta=x_delta,
@@ -305,7 +324,7 @@ def update_progress(
         f_delta=f_delta,
         f_delta_violations=f_viol,
         gradient_norm=gradient_norm,
-        condition_hessian=torch.zeros_like(value),
+        condition_hessian=cond_h,
         status=status,
         past_ring=ring,
         past_pos=past_pos,

@@ -40,6 +40,9 @@ KERNELS = {
     "mt_trip": [_P] * 8 + [_I] * 3 + [_P],
     "lbfgs_prologue": [_P] * 13 + [_I] * 3 + [_P],
     "lbfgs_epilogue": [_P] * 22 + [_I] * 2 + _CRIT + [_P],
+    "lbfgs_prologue_t": [_P] * 14 + [_I] * 5 + [_P],
+    "push_two_loop": [_P] * 9 + [_I] * 3 + [_P],
+    "two_loop": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 

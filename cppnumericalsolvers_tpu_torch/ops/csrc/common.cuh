@@ -1,11 +1,13 @@
 // Device code shared by the port's CUDA kernels (flat_trip.cu, mt_trip.cu,
-// lbfgs_prologue.cu, lbfgs_epilogue.cu): block reductions, the MINPACK
+// lbfgs_prologue.cu, lbfgs_prologue_t.cu, lbfgs_epilogue.cu,
+// push_two_loop.cu, two_loop.cu): block reductions, the MINPACK
 // More-Thuente step (cstep, trial setup, one post-evaluation trip), the
 // two-loop recursion with the curvature gate, and the Progress::Update
 // ladder.  Each kernel source includes this header and is compiled on its own
 // into one shared library with a plain C interface.
 //
-// Design shared by all four kernels.  One thread block per lane (grid = B);
+// Design shared by all kernels but lbfgs_prologue_t.cu, which says how it
+// differs.  One thread block per lane (grid = B);
 // threads stride over n, so each thread owns the same elements j in every
 // vector and history row.  Reductions are warp shuffles plus shared memory,
 // combined across warps in a fixed order, so every thread of a block gets

@@ -50,7 +50,11 @@ from ..core.progress import (
     update_progress,
 )
 from ..core.status import Status
-from .two_loop import push_history, search_direction, two_loop_direction
+from .two_loop import (
+    push_history,
+    search_direction,
+    two_loop_direction_reference,
+)
 from ._kernel import (
     SMEM_LIMIT as _SMEM_LIMIT,
     check_args,
@@ -331,7 +335,7 @@ def flat_trip_reference(
     s_o, y_o, new_count, new_gamma = push_history(
         st.s, st.y, count, frow(_F_GAMMA), s_new, y_new, valid
     )
-    q = two_loop_direction(g1, s_o, y_o, new_count, new_gamma)
+    q = two_loop_direction_reference(g1, s_o, y_o, new_count, new_gamma)
 
     ls_dir_new, alpha0, dginit_new, invalid = search_direction(
         x1, g1, q, new_count)

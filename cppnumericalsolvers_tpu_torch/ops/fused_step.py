@@ -42,7 +42,11 @@ from ..core.progress import (
 from ..core.tree import tree_where
 from ._kernel import check_args, check_float, check_smem, launch
 from .flat_solve import crit_scalars
-from .two_loop import push_history, search_direction, two_loop_direction
+from .two_loop import (
+    push_history,
+    search_direction,
+    two_loop_direction_reference,
+)
 
 __all__ = [
     "lbfgs_prologue",
@@ -68,7 +72,8 @@ def lbfgs_prologue_reference(
     s_mem, y_mem, count, new_gamma = push_history(
         s_memory, y_memory, mem_count, gamma, s_new, y_new, valid & live
     )
-    d = two_loop_direction(gradient, s_mem, y_mem, count, new_gamma)
+    d = two_loop_direction_reference(gradient, s_mem, y_mem, count,
+                                     new_gamma)
     ls_dir, alpha_init, dginit, invalid = search_direction(
         x, gradient, d, count)
     # Invalid descent resets the history (lbfgs.h:214-224).

@@ -1,3 +1,3 @@
-from .lbfgs import Lbfgs, LbfgsInternals
+from .lbfgs import Lbfgs, LbfgsInternals, LbfgsInternalsT, two_loop_direction
 
-__all__ = ["Lbfgs", "LbfgsInternals"]
+__all__ = ["Lbfgs", "LbfgsInternals", "LbfgsInternalsT", "two_loop_direction"]

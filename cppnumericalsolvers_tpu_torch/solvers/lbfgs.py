@@ -7,12 +7,23 @@ batched solves.  Two loops serve it, as in the JAX package:
   objective evaluation and one ``flat_trip`` call: every fresh solve without
   a trace, at every n (the JAX package's n cut-offs between its lowerings
   were tuned on a TPU and are not carried over);
-* the iteration-granular loop of core/driver.py over
-  :meth:`Lbfgs.step_and_update`: ``lbfgs_prologue`` -> the batched
-  More-Thuente search (``mt_trip`` per evaluation) -> ``lbfgs_epilogue``.  It
-  serves warm starts (``internals=``), traces, callbacks and ``resume``.
+* the iteration-granular loop of core/driver.py, which serves warm starts
+  (``internals=``), traces, callbacks and ``resume``.  Its iteration is one
+  of three steps:
 
-Both return :class:`LbfgsInternals`, chronological and batch-major:
+  - :meth:`Lbfgs.step_and_update`: ``lbfgs_prologue`` -> the batched
+    More-Thuente search (``mt_trip`` per evaluation) -> ``lbfgs_epilogue``;
+  - :meth:`Lbfgs.batched_step_and_update`: the same with the history in the
+    batch-minor layout of ops/fused_step_t.py (``lbfgs_prologue_t``), where
+    :meth:`Lbfgs.supports_batched_native` holds.  The loop converts the
+    history once at entry and once at exit;
+  - :meth:`Lbfgs.step`: the generic step (``lbfgs_push_and_direction``, the
+    descent check, the search, the guards in plain PyTorch), for what the
+    fused steps do not cover: the Hessian-condition criterion, which the
+    loop evaluates between step and convergence test, and the
+    Hessian-diagonal preconditioner.
+
+All return :class:`LbfgsInternals`, chronological and batch-major:
 ``(B, m, n)`` with row 0 the oldest correction.
 """
 
@@ -23,12 +34,26 @@ import dataclasses
 import torch
 
 from ..core.driver import MinimizeResult, SolverBase
+from ..core.objective import FunctionState
 from ..linesearch.dispatch import run_line_search
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.flat_solve import flat_lbfgs_solve
 from ..ops.fused_step import lbfgs_epilogue, lbfgs_prologue
+from ..ops.fused_step_t import (
+    history_rows_to_t,
+    history_t_to_rows,
+    lbfgs_prologue_t,
+    make_history_t,
+)
+from ..ops.two_loop import (
+    lbfgs_push_and_direction,
+    push_history,
+    search_direction,
+    two_loop_direction,
+    two_loop_direction_reference,
+)
 
-__all__ = ["Lbfgs", "LbfgsInternals"]
+__all__ = ["Lbfgs", "LbfgsInternals", "LbfgsInternalsT", "two_loop_direction"]
 
 
 @dataclasses.dataclass
@@ -51,6 +76,23 @@ class LbfgsInternals:
     pending_valid: torch.Tensor  # (B,) bool: the pair came from a finite step
 
 
+@dataclasses.dataclass
+class LbfgsInternalsT:
+    """:class:`LbfgsInternals` with the history in the batch-minor layout of
+    ops/fused_step_t.py: ``(m * n, B)``, the batch in the contiguous
+    dimension.  It is the carry of the batch-minor loop and lives only
+    inside it: :meth:`Lbfgs.to_rows` converts it back before a result is
+    returned."""
+
+    s_memory_t: torch.Tensor  # (m*n, B) x-diff history, batch-minor
+    y_memory_t: torch.Tensor  # (m*n, B)
+    mem_count: torch.Tensor  # (B,) int32
+    gamma: torch.Tensor  # (B,)
+    s_pending: torch.Tensor  # (B, n)
+    y_pending: torch.Tensor  # (B, n)
+    pending_valid: torch.Tensor  # (B,) bool
+
+
 @dataclasses.dataclass(frozen=True)
 class Lbfgs(SolverBase):
     """Limited-memory BFGS (default history m=10, lbfgs.h:40)."""
@@ -58,7 +100,20 @@ class Lbfgs(SolverBase):
     m: int = 10
     max_linesearch_fev: int = DEFAULT_MAX_FEV
     line_search: str = "more_thuente"
+    #: Use the Hessian-diagonal preconditioner (needs a second-mode
+    #: objective); lbfgs.h:97-139.
     use_hessian_preconditioner: bool = False
+
+    #: Largest n, and least batch, that the iteration-granular loop runs on
+    #: the batch-minor history.  0 routes nothing there: on an NVIDIA H100
+    #: 80GB HBM3 (700 W) the batch-minor prologue took 0.107, 0.167, 0.550
+    #: and 0.970 ms per launch at (1024, 32), (1024, 256), (1024, 1024) and
+    #: (512, 2048) in float32 against the batch-major prologue's 0.017,
+    #: 0.059, 0.138 and 0.135 ms, and whole traced solves on the host clock
+    #: did not separate (PERF.md, the routing table; measured by
+    #: chip_smoke.py's routing phase).
+    _TRANSPOSED_N_MAX = 0
+    _TRANSPOSED_B_MIN = 128
 
     def __post_init__(self):
         if self.line_search != "more_thuente":
@@ -67,12 +122,27 @@ class Lbfgs(SolverBase):
                 "(ROADMAP.md queue A item 12: linesearch/armijo.py, "
                 "linesearch/hager_zhang.py)."
             )
-        if self.use_hessian_preconditioner:
-            raise NotImplementedError(
-                "use_hessian_preconditioner is not ported yet (ROADMAP.md "
-                "queue A item 9: the L-BFGS step with the Hessian-diagonal "
-                "preconditioner)."
-            )
+
+    def supports_fused_update(self, objective) -> bool:
+        """Whether :meth:`step_and_update` may stand in for :meth:`step` +
+        the convergence test + the freeze of done lanes: every
+        configuration but the Hessian-diagonal preconditioner, which needs
+        an objective transform inside the step."""
+        del objective
+        return not self.use_hessian_preconditioner
+
+    def supports_batched_native(self, objective, x0_batch) -> bool:
+        """Whether the iteration-granular loop of this batch runs on the
+        batch-minor history (:meth:`batched_step_and_update`): the
+        fused-update configuration, at least ``_TRANSPOSED_B_MIN`` lanes
+        and n up to ``_TRANSPOSED_N_MAX``.  The rule is the same on the CPU
+        and on the card."""
+        b, n = x0_batch.shape
+        return (
+            self.supports_fused_update(objective)
+            and b >= self._TRANSPOSED_B_MIN
+            and n <= self._TRANSPOSED_N_MAX
+        )
 
     def solve_batched(self, objective, state0, stopping):
         res = flat_lbfgs_solve(
@@ -89,8 +159,11 @@ class Lbfgs(SolverBase):
             trips=res.trips,
         )
 
-    def init_batched(self, objective, state) -> LbfgsInternals:
-        """Empty internals for a batched start ``state`` ``(B, n)``."""
+    def init_batched(self, objective, state, batch_minor: bool = False):
+        """Empty internals for a batched start ``state`` ``(B, n)``:
+        :class:`LbfgsInternals`, or with ``batch_minor`` the
+        :class:`LbfgsInternalsT` that :meth:`batched_step_and_update`
+        takes."""
         del objective
         b, n = state.x.shape
         dtype, dev = state.x.dtype, state.x.device
@@ -98,15 +171,58 @@ class Lbfgs(SolverBase):
         def zeros(*shape, dtype=dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
-        return LbfgsInternals(
-            s_memory=zeros(b, self.m, n),
-            y_memory=zeros(b, self.m, n),
+        rest = dict(
             mem_count=zeros(b, dtype=torch.int32),
             gamma=torch.ones((b,), dtype=dtype, device=dev),
             s_pending=zeros(b, n),
             y_pending=zeros(b, n),
             pending_valid=zeros(b, dtype=torch.bool),
         )
+        if batch_minor:
+            return LbfgsInternalsT(
+                s_memory_t=make_history_t(b, self.m, n, dtype, dev),
+                y_memory_t=make_history_t(b, self.m, n, dtype, dev), **rest)
+        return LbfgsInternals(
+            s_memory=zeros(b, self.m, n), y_memory=zeros(b, self.m, n),
+            **rest)
+
+    def to_batch_minor(self, internals: LbfgsInternals) -> LbfgsInternalsT:
+        """A copy of ``internals`` with the history batch-minor."""
+        it = internals
+        return LbfgsInternalsT(
+            s_memory_t=history_rows_to_t(it.s_memory),
+            y_memory_t=history_rows_to_t(it.y_memory),
+            mem_count=it.mem_count, gamma=it.gamma, s_pending=it.s_pending,
+            y_pending=it.y_pending, pending_valid=it.pending_valid,
+        )
+
+    def to_rows(self, internals: LbfgsInternalsT) -> LbfgsInternals:
+        """A copy of ``internals`` with the history ``(B, m, n)``."""
+        it = internals
+        n = it.s_pending.shape[1]
+        return LbfgsInternals(
+            s_memory=history_t_to_rows(it.s_memory_t, self.m, n),
+            y_memory=history_t_to_rows(it.y_memory_t, self.m, n),
+            mem_count=it.mem_count, gamma=it.gamma, s_pending=it.s_pending,
+            y_pending=it.y_pending, pending_valid=it.pending_valid,
+        )
+
+    def batched_step_and_update(
+        self, objective, state, internals: LbfgsInternalsT, progress,
+        stopping, done,
+    ):
+        """:meth:`step_and_update` on the batch-minor history: the
+        batch-minor prologue kernel -> line search -> epilogue kernel.  Only
+        the storage layout and the order of the sums differ."""
+        it = internals
+        ls_dir, alpha_init, dginit, _, _, count, _ = lbfgs_prologue_t(
+            state.x, state.gradient, it.s_memory_t, it.y_memory_t,
+            it.mem_count, it.gamma, it.s_pending, it.y_pending,
+            it.pending_valid, done,
+        )
+        return self._search_and_epilogue(
+            objective, state, internals, progress, stopping, done, ls_dir,
+            alpha_init, dginit, count)
 
     def step_and_update(
         self, objective, state, internals: LbfgsInternals, progress,
@@ -122,6 +238,15 @@ class Lbfgs(SolverBase):
             state.x, state.gradient, it.s_memory, it.y_memory, it.mem_count,
             it.gamma, it.s_pending, it.y_pending, it.pending_valid, done,
         )
+        return self._search_and_epilogue(
+            objective, state, internals, progress, stopping, done, ls_dir,
+            alpha_init, dginit, count)
+
+    def _search_and_epilogue(
+        self, objective, state, internals, progress, stopping, done, ls_dir,
+        alpha_init, dginit, count,
+    ):
+        it = internals
         ls = run_line_search(
             self.line_search, objective.batched_value_and_grad, state.x,
             state.value, state.gradient, ls_dir, alpha_init,
@@ -132,3 +257,103 @@ class Lbfgs(SolverBase):
             it.y_pending, it.pending_valid, done, progress, stopping,
         )
         return state, internals, progress, ls.trips
+
+    def step(self, objective, state, internals: LbfgsInternals, stopping,
+             done=None):
+        """One L-BFGS iteration of every lane without the convergence test:
+        the generic step that core/driver.py composes with
+        :func:`~..core.progress.update_progress`.  Returns ``(next_state,
+        next_internals, trips)``, ``trips`` being the search's batched
+        evaluations.  ``state`` is not changed.  ``internals`` is consumed:
+        :func:`~..ops.two_loop.lbfgs_push_and_direction` updates its
+        history, count and gamma in place, and the record returned shares
+        the history tensors (with the preconditioner the history is new
+        tensors).  With ``done`` given, a done lane's internals come back
+        bit-identical; its state is the caller's to freeze."""
+        del stopping
+        it = internals
+        dtype = state.x.dtype
+        eps = torch.finfo(dtype).eps
+        gradient = state.gradient
+        nfev = state.nfev
+
+        # Gating the pending pair's validity makes the push a no-op for a
+        # done lane (buffers, count, gamma all pass through); the per-lane
+        # resets below are where(done, ...)-guarded.
+        pending_valid = it.pending_valid
+        if done is not None:
+            pending_valid = pending_valid & ~done
+
+        if self.use_hessian_preconditioner:
+            if objective.mode != "second":
+                raise ValueError(
+                    "use_hessian_preconditioner requires a second-mode "
+                    "objective"
+                )
+            hess_diag = torch.diagonal(
+                objective.hessian(state.x), dim1=-2, dim2=-1)
+            precond = 1.0 / (torch.abs(hess_diag) + eps)
+            nfev = nfev + 1
+            # The preconditioned recursion runs no kernel in the JAX package
+            # either: plain push, then the plain two-loop.
+            s_memory, y_memory, mem_count, gamma = push_history(
+                it.s_memory, it.y_memory, it.mem_count, it.gamma,
+                it.s_pending, it.y_pending, pending_valid,
+            )
+            direction = two_loop_direction_reference(
+                gradient, s_memory, y_memory, mem_count, gamma, precond)
+        else:
+            # Append the previous step's pair (curvature-gated,
+            # lbfgs.h:253-298) and compute the direction (lbfgs.h:141-196).
+            direction, s_memory, y_memory, mem_count, gamma = (
+                lbfgs_push_and_direction(
+                    gradient.contiguous(), it.s_memory, it.y_memory,
+                    it.mem_count, it.gamma, it.s_pending,
+                    it.y_pending, pending_valid,
+                )
+            )
+
+        # Descent check, steepest-descent fallback with a history reset
+        # (lbfgs.h:199-224), and the first step.
+        ls_dir, alpha_init, _, invalid = search_direction(
+            state.x, gradient, direction, mem_count)
+        mem_count = torch.where(invalid, torch.zeros_like(mem_count),
+                                mem_count)
+
+        # Strong-Wolfe search along -direction (lbfgs.h:226-232); it
+        # computes the directional derivative itself.
+        ls = run_line_search(
+            self.line_search, objective.batched_value_and_grad, state.x,
+            state.value, gradient, ls_dir, alpha_init,
+            max_fev=self.max_linesearch_fev,
+        )
+        nfev = nfev + ls.nfev
+
+        # Non-finite guard: keep the last finite state (lbfgs.h:234-241).
+        finite = torch.isfinite(ls.f)
+        next_state = FunctionState(
+            x=torch.where(finite[:, None], ls.x, state.x),
+            value=torch.where(finite, ls.f, state.value),
+            gradient=torch.where(finite[:, None], ls.g, gradient),
+            nfev=nfev,
+        )
+        s = next_state.x - state.x
+        y = next_state.gradient - gradient
+
+        # Stall recovery: a search that could not move x would repeat the
+        # same failing direction; clearing the history makes the next step
+        # steepest descent with a fresh step length.
+        stalled = torch.amax(torch.abs(s), dim=-1) <= 0.0
+        mem_count = torch.where(stalled, torch.zeros_like(mem_count),
+                                mem_count)
+
+        if done is not None:
+            mem_count = torch.where(done, it.mem_count, mem_count)
+            s = torch.where(done[:, None], it.s_pending, s)
+            y = torch.where(done[:, None], it.y_pending, y)
+            finite = torch.where(done, it.pending_valid, finite)
+
+        return next_state, LbfgsInternals(
+            s_memory=s_memory, y_memory=y_memory, mem_count=mem_count,
+            gamma=gamma, s_pending=s, y_pending=y, pending_valid=finite,
+        ), ls.trips

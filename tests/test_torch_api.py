@@ -179,7 +179,10 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cns.Lbfgs(line_search="armijo")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cns.Lbfgs(use_hessian_preconditioner=True)
+        cns.Lbfgs(line_search="hager_zhang")
+    # The Hessian-diagonal preconditioner is ported: it constructs, and its
+    # solves are held to JAX's in tests/test_torch_cond_h.py.
+    assert cns.Lbfgs(use_hessian_preconditioner=True).m == 10
 
 
 def test_stopping_criteria_carry_across():
