@@ -23,11 +23,15 @@ Lbfgs(m=10))``:
 Phases (each raises on failure, so the script then exits non-zero):
 
 1. build   compile the seven sources of ``ops/csrc/`` with nvcc for sm_90a,
-           all at once, and load them;
+           all at once, load them, and print each kernel's registers and
+           spills (ptxas -v);
 2. card    print the card's name and power limit (nvidia-smi);
 3. parity  flat: ~50 trips of a plain-version solve; at every trip the
            identical state goes through the kernel and through the plain
-           version, and every output is compared (float64 and float32).
+           version, and every output is compared (float64 and float32), at
+           shapes that take every lane mapping of the kernel (a warp per
+           lane with a ragged last block, a block per lane at a ragged n,
+           the history staged on chip and streamed).
            Nested: the same for every call of the three kernels during a
            plain-version solve run to its end, at every shape the nested
            path runs at, so that done lanes, full-history pushes and the
@@ -76,12 +80,16 @@ MAX_FEV = 20
 # (256, 4096), which records the flat kernel above n = 1024 for routing.
 MAIN_SHAPES = [(1024, 32), (8192, 32), (1024, 1024), (256, 4096)]
 HEADLINE_SHAPE = (1024, 1024)
-PARITY_SHAPES = [(1024, 32), (1024, 1024)]
+# The flat kernel's lane mappings (ops/_kernel.py::lane_mapping): warp per
+# lane with a ragged last block (1000, 32), a block per lane at a ragged n
+# (1024, 100), staged rows (1024, 1024) and streamed rows (256, 4096).
+PARITY_SHAPES = [(1024, 32), (1000, 32), (1024, 100), (1024, 1024),
+                 (256, 4096)]
 PARITY_TRIPS = 50
 # The iteration-granular path: full width in float32.  Its kernels are held
 # against their plain versions at these shapes and at (1024, 32).
 NESTED_SHAPES = [(1024, 1024), (256, 4096)]
-NESTED_PARITY_SHAPES = [(1024, 32)] + NESTED_SHAPES
+NESTED_PARITY_SHAPES = [(1024, 32), (1000, 32), (1024, 100)] + NESTED_SHAPES
 # One more nested parity solve, for the rungs the default solve does not
 # reach: lanes that start at the optimum (zero step: stall reset, x_delta),
 # lanes far out (overflow in the search: the non-finite guard), a counted
@@ -115,7 +123,7 @@ PUSH_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (256, 4096)]
 TWO_LOOP_SHAPES = [(1024, 32), (1024, 1024), (256, 4096)]
 # One made-up call through both prologues, built to reach what no parity
 # solve reaches on the card: the invalid-descent history reset.
-RESET_SHAPES = [(1024, 32), (1024, 1024)]
+RESET_SHAPES = [(1024, 32), (1000, 32), (1024, 1024)]
 OP_TIMED_CALLS = 20
 REPLACES = {
     "flat_trip": "cppnumericalsolvers_tpu/ops/flat_solve.py:109",
@@ -272,6 +280,12 @@ def main() -> int:
     record["build_s"] = time.perf_counter() - t0
     log(f"[build] {', '.join(mods.build.KERNELS)}: "
         f"{record['build_s']:.2f} s")
+    record["ptxas"] = {}
+    for name in mods.build.KERNELS:
+        for fn, regs, stores, loads in mods.build.ptxas_report(name):
+            record["ptxas"][fn] = [regs, stores, loads]
+            log(f"[build] {name} {fn}: {regs} registers, {stores} bytes "
+                f"spill stores, {loads} bytes spill loads")
 
     # 2. card ---------------------------------------------------------------
     card = card_line()
@@ -402,6 +416,7 @@ def main() -> int:
             "converged_share": converged_share(res, cns),
             "main_wall_s": wall,
             "lane_iterations_per_s": float(its.sum()) / wall,
+            "mapping": vars(fs.lane_mapping("flat_trip", b, n, M, 4)),
         }
         log(f"[main] ({b}, {n}) float32: {res.trips} trips, {launches} "
             f"launches, {row['batched_iterations']} batched iterations, "
@@ -421,10 +436,13 @@ def main() -> int:
         obj, obj.evaluate(x0), cns.default_stopping(torch.float64), m=M,
         max_fev=MAX_FEV, trip=fs.flat_trip_reference,
     )
-    same = bool((res.progress.status == plain.progress.status).all())
-    log(f"[main] (256, 64) float64: {res.trips} trips, statuses equal on "
-        f"every lane: {same}")
-    if not same or fs.flat_trip.launches == 0:
+    same = {name: bool((getattr(res.progress, name)
+                        == getattr(plain.progress, name)).all())
+            for name in ("status", "num_iterations")}
+    same["nfev"] = bool((res.state.nfev == plain.state.nfev).all())
+    log(f"[main] (256, 64) float64: {res.trips} trips, equal on every lane: "
+        f"{same}")
+    if not all(same.values()) or fs.flat_trip.launches == 0:
         raise AssertionError("float64 main-path solve disagrees with plain")
 
     fs.flat_trip.launches = 0
@@ -1271,8 +1289,9 @@ def trip_work(fs, obj, x0, stop) -> dict:
     reads g_t, sdir, x0 and writes gacc and the trial point.  A lane at the
     iteration boundary reads x0, g0, sdir and its accepted gradient, reads
     the history rows its two-loop uses, writes x0, g0, sdir, gacc, the
-    trial point, and the history rows that changed (one row, or all m when a
-    full history shifts).  Scalar rows count for every live lane."""
+    trial point, and the one row of s and of y that an accepted pair takes
+    in the ring (at the head when the history is full, else at age count).
+    Scalar rows count for every live lane."""
     import torch
 
     state0 = obj.evaluate(x0)
@@ -1284,7 +1303,8 @@ def trip_work(fs, obj, x0, stop) -> dict:
     def counting(st, f_t, g_t, x_trial, stopping, max_fev):
         si0 = st.si.clone()
         c0 = si0[:, fs._I_COUNT].long()
-        slot = c0.clamp(max=M - 1)
+        head = si0[:, fs._I_HEAD].long()
+        slot = torch.where(c0 >= M, head, (head + c0) % M)
         s_row, y_row = st.s[lanes, slot].clone(), st.y[lanes, slot].clone()
         fs.flat_trip(st, f_t, g_t, x_trial, stopping, max_fev)
         dead = si0[:, fs._I_STATUS] != 0
@@ -1296,8 +1316,7 @@ def trip_work(fs, obj, x0, stop) -> dict:
                      | (st.y[lanes, slot] != y_row).any(1))
         c1 = st.si[:, fs._I_COUNT].long()
         hist_read = 2 * n * (c1 - acc.long()).clamp(min=0)
-        hist_write = torch.where(acc, torch.where(c0 >= M, 2 * M * n, 2 * n),
-                                 0)
+        hist_write = torch.where(acc, 2 * n, 0)
         scal = (2 * (fs._NF + 8) + 1) * w + 2 * fs._NI * 4
         elems = torch.where(dead, 2 * n, torch.where(
             mid, 5 * n, 9 * n + hist_read + hist_write))

@@ -4,7 +4,7 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds).
 Libraries go to ``build/torch_kernels/`` in the directory that holds the
 package (the repository root in a checkout), named by a hash of the source,
-the shared header and the flags, so an edited source is rebuilt and an
+the shared headers and the flags, so an edited source is rebuilt and an
 unchanged one is reused.  Nothing here runs at import time.
 """
 
@@ -14,21 +14,23 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "build_all", "load"]
+__all__ = ["BUILD_DIR", "KERNELS", "NVCC_FLAGS", "build", "build_all", "load",
+           "parse_ptxas", "ptxas_report"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_HEADER = _CSRC / "common.cuh"
+_HEADERS = sorted(_CSRC.glob("*.cuh"))
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3", "-std=c++17", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -36,9 +38,9 @@ _CRIT = [_D] * 4 + [_I] * 6
 #: Kernel name -> argument types of its two C entry points
 #: (``cppns_<name>_f32`` and ``cppns_<name>_f64``).
 KERNELS = {
-    "flat_trip": [_P] * 12 + [_I] * 4 + _CRIT + [_P],
+    "flat_trip": [_P] * 12 + [_I] * 7 + _CRIT + [_P],
     "mt_trip": [_P] * 8 + [_I] * 3 + [_P],
-    "lbfgs_prologue": [_P] * 13 + [_I] * 3 + [_P],
+    "lbfgs_prologue": [_P] * 13 + [_I] * 6 + [_P],
     "lbfgs_epilogue": [_P] * 22 + [_I] * 2 + _CRIT + [_P],
     "lbfgs_prologue_t": [_P] * 14 + [_I] * 5 + [_P],
     "push_two_loop": [_P] * 9 + [_I] * 3 + [_P],
@@ -61,7 +63,8 @@ def build(name: str) -> Path:
     returns the library's path."""
     src = _CSRC / f"{name}.cu"
     digest = hashlib.sha256(
-        src.read_bytes() + _HEADER.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + b"".join(h.read_bytes() for h in _HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}_{digest}.so"
     if lib.exists():
@@ -75,8 +78,34 @@ def build(name: str) -> Path:
             f"nvcc failed for {name}.cu ({proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
         )
+    # ptxas -v: registers, shared memory and spills of every kernel.
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def parse_ptxas(text: str) -> list:
+    """``[(kernel symbol, registers, spill stores, spill loads)]`` from
+    ptxas's ``-v`` output."""
+    out, fn = [], None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            fn, stores, loads = found.group(1), 0, 0
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and fn:
+            stores, loads = int(spill.group(1)), int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and fn:
+            out.append((fn, int(regs.group(1)), stores, loads))
+            fn = None
+    return out
+
+
+def ptxas_report(name: str) -> list:
+    """:func:`parse_ptxas` of the built library of kernel ``name``."""
+    return parse_ptxas(build(name).with_suffix(".ptxas.txt").read_text())
 
 
 def build_all() -> dict:

@@ -10,13 +10,17 @@ import ctypes
 
 import torch
 
-__all__ = ["SMEM_LIMIT", "check_args", "check_float", "check_smem", "launch",
-           "two_loop_smem_bytes"]
+import dataclasses
+
+__all__ = ["SMEM_LIMIT", "LaneMapping", "check_args", "check_float",
+           "check_smem", "lane_mapping", "launch",
+           "mapping_smem_bytes", "two_loop_smem_bytes"]
 
 # Shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
 _MAX_WARPS = 8
 _RED_SLOTS = 8
+_SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def check_args(op: str, expect: dict) -> torch.device:
@@ -57,6 +61,105 @@ def check_smem(op: str, m: int, n: int, itemsize: int) -> None:
             f"{op}: n={n}, m={m} needs {smem} bytes of shared memory "
             f"per block, more than the {SMEM_LIMIT} a Hopper block has"
         )
+
+
+# The lane mapping of the redesigned kernels (csrc/staged.cuh).
+_WARP_N_MAX = 64          # a lane is one warp up to this n
+_LANE_MAX_THREADS = 512   # else one block of up to this many threads
+_LANE_MAX_WARPS = _LANE_MAX_THREADS // 32
+_MAX_LANES_PER_BLOCK = 8
+#: Where the two-loop reads the history rows (staged.cuh ``ROWS_*``).
+ROWS_STREAM, ROWS_STAGED, ROWS_DIRECT = 0, 1, 2
+_ELEMENTS_PER_THREAD = 8  # of a row, for n > 64
+# The prologue stages a lane's rows where four such lanes fit an SM.
+_STAGE_LIMIT = SMEM_LIMIT // 4
+
+
+@dataclasses.dataclass(frozen=True)
+class LaneMapping:
+    """How a redesigned kernel maps lanes to threads: ``threads_per_lane``
+    (32: one warp per lane, ``lanes_per_block`` lanes in a block; else one
+    lane per block), where its two-loop reads the history ``rows``
+    (``ROWS_STAGED``: copied into shared memory; ``ROWS_STREAM``: streamed
+    through shared-memory row buffers; ``ROWS_DIRECT``: from device memory
+    in place), the block's shared memory and the grid."""
+
+    lanes_per_block: int
+    threads_per_lane: int
+    rows: int
+    smem_bytes: int
+    blocks: int
+
+    def scalars(self) -> tuple:
+        """The three ints the C entry points take after ``b, n, m``."""
+        return (self.lanes_per_block, self.threads_per_lane, self.rows)
+
+
+def lane_smem_bytes(m: int, n: int, itemsize: int, rows: int,
+                    lanes: int = 1, warp: bool = True) -> int:
+    """Shared memory of a block of ``lanes`` lanes (csrc/staged.cuh
+    ``lane_values`` and ``mapping_smem``): per lane alpha, rho, s.y and the
+    usable flag per row, q, and the staged rows (2 m n) or the stream's two
+    row buffers of s and y (4 n); a block-per-lane block adds its reduction
+    scratch."""
+    extra = {ROWS_STAGED: 2 * m * n, ROWS_STREAM: 4 * n, ROWS_DIRECT: 0}
+    lane = (4 * m + n + extra[rows]) * itemsize
+    red = 0 if warp else 2 * _RED_SLOTS * _LANE_MAX_WARPS * itemsize
+    return lanes * lane + red
+
+
+def _pick(op: str, b: int, n: int, m: int, itemsize: int):
+    """``(lanes per block, threads per lane, rows, shared memory)``."""
+    warp = n <= _WARP_N_MAX
+    if warp:
+        lpb = min(_MAX_LANES_PER_BLOCK, max(1, b // (2 * _SMS)))
+        return lpb, 32, ROWS_DIRECT, lane_smem_bytes(
+            m, n, itemsize, ROWS_DIRECT, lpb)
+    tpl = min(_LANE_MAX_THREADS,
+              max(64, -(-n // (32 * _ELEMENTS_PER_THREAD)) * 32))
+
+    def smem(rows):
+        return lane_smem_bytes(m, n, itemsize, rows, 1, False)
+
+    rows = ROWS_STREAM
+    if op == "lbfgs_prologue" and smem(ROWS_STAGED) <= _STAGE_LIMIT:
+        rows = ROWS_STAGED
+    return 1, tpl, rows, smem(rows)
+
+
+def mapping_smem_bytes(op: str, b: int, n: int, m: int, itemsize: int
+                       ) -> int:
+    """Shared memory of one block under :func:`lane_mapping`'s choice,
+    whether or not it fits."""
+    return _pick(op, b, n, m, itemsize)[3]
+
+
+def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
+                 ) -> LaneMapping:
+    """Pick the lane mapping of ``flat_trip`` and ``lbfgs_prologue`` (``op``)
+    for a ``(b, n)`` batch with ``m`` history rows.  The rules follow a sweep
+    of every mapping on the card (``lane_sweep.py``; PERF.md).
+
+    * n <= 64: a warp per lane, reductions by shuffles alone, the rows read
+      in place (at n = 32 a row is one cache line); ``b // 264`` lanes per
+      block (so there are at least two blocks per SM), between 1 and 8; the
+      last block may be ragged.
+    * larger n: one block per lane of 64 to 512 threads, each owning 8
+      elements of a row, which streams the rows through shared memory:
+      small blocks keep many lanes in flight.  The prologue, where every live
+      lane runs the two-loop, copies the rows into shared memory instead
+      where four such lanes fit an SM (n = 256 at m = 10 in float32); above
+      that the shared memory it takes costs more lanes in flight than the
+      reads it saves.
+
+    Raises ``ValueError`` where the chosen layout does not fit a block."""
+    lpb, tpl, rows, need = _pick(op, b, n, m, itemsize)
+    if need > SMEM_LIMIT:
+        raise ValueError(
+            f"{op}: n={n}, m={m} needs {need} bytes of shared memory per "
+            f"block, more than the {SMEM_LIMIT} a Hopper block has"
+        )
+    return LaneMapping(lpb, tpl, rows, need, -(-b // lpb))
 
 
 def launch(name: str, dev: torch.device, dtype, tensors, scalars=()) -> None:

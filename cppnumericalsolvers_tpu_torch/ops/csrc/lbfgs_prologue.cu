@@ -8,27 +8,40 @@
 // invalid-descent fallback to steepest descent with a history reset, and the
 // line search's set-up (alpha_init, dginit).  It writes the search direction.
 //
-// Design.  One thread block per lane, as common.cuh sets out.  The history,
-// its count and gamma are updated in place.  A done lane's block touches none
-// of them and emits the zero direction with dginit = 0, on which the search
-// aborts before its first evaluation by its own non-descent rule.  The
-// two-loop's q and the per-row alpha/rho live in shared memory; the wrapper
-// checks that they fit.
+// Design (redesigned for Hopper; staged.cuh sets out the lane groups and
+// the row modes).  The wrapper maps a lane to one warp (n <= 64, several
+// lanes per block, rows read in place with the next row's load ahead) or to
+// one block of 64 to 512 threads, each thread owning 8 elements of a row.
+// The history, its count and gamma are updated in place, and the history
+// stays chronological (it is LbfgsInternals, shared with resume and warm
+// starts).  Where four lanes' rows fit an SM's shared memory (n = 256 at
+// m = 10) they are copied there (cp.async) while the pending pair's sums
+// run; a full history's shift is then written from the staged rows, as
+// writes only, and the two-loop reads no device memory.  Otherwise the shift
+// loads four rows before storing them and the two-loop streams or reads the
+// rows.  A done lane touches none of
+// them and emits the zero direction with dginit = 0, on which the search
+// aborts before its first evaluation by its own non-descent rule.
 //
 // What bounds it on an H100: device-memory bytes.  A live lane reads x, g and
-// the pending pair, reads the history rows in use (the two passes of the
-// recursion; each row counted once), rewrites the history when the pair is
-// accepted (one row, or all m rows when a full history shifts) and writes
-// the direction.  A block reads only the rows below its lane's count, where
-// the TPU kernel ran all m rows masked.
+// the pending pair, reads the history rows in use once, writes the rows that
+// changed (one, or all m when a full history shifts) and the direction.
+// On one NVIDIA H100 80GB HBM3 at 700 W this design reaches 10-38% of that
+// bound at the shapes PERF.md lists; the one before it (a 256-thread block
+// per lane, rows read from device memory in every pass) reached 8-33%.
 //
 // Numerics and build flags: see common.cuh (--fmad=false; ops/_build.py).
 
-#include "common.cuh"
+#include "staged.cuh"
 
 namespace {
 
 using namespace cppns;
+
+// Blocks per SM the warp-per-lane build is bounded for (launch bounds).
+constexpr int WARP_MIN_BLOCKS = 2;
+// Rows a full history's shift moves per batch of loads (not staged).
+constexpr int SHIFT_BATCH = 4;
 
 template <typename T> struct Args {
   const T *x, *g, *s_new, *y_new;
@@ -36,21 +49,37 @@ template <typename T> struct Args {
   T *s, *y;
   int *count;
   T *gamma, *ls_dir, *alpha, *dginit;
-  int n, m;
+  int b, n, m, rows;
 };
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS) prologue_kernel(Args<T> a) {
+template <typename T, bool WARP, bool WIDE>
+__global__ void __launch_bounds__(bound_threads(WARP, WIDE),
+                                  WARP ? WARP_MIN_BLOCKS : 2)
+    prologue_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T *red = reinterpret_cast<T *>(smem_raw);
-  T *alphas = red + RED_SLOTS * MAX_WARPS;
-  T *rhos = alphas + a.m;
-  T *q = rhos + a.m;
-  int *usables = reinterpret_cast<int *>(q + a.n);
-
   const int n = a.n, m = a.m;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const size_t lane = blockIdx.x;
+  const bool staged = a.rows == ROWS_STAGED;
+  T *base = reinterpret_cast<T *>(smem_raw);
+  Group<T, WARP> grp;
+  grp.buf = 0;
+  size_t lane;
+  if (WARP) {
+    const int slot = threadIdx.x >> 5;
+    lane = (size_t)blockIdx.x * (blockDim.x >> 5) + slot;
+    if (lane >= (size_t)a.b) return;  // ragged last block
+    grp.tid = threadIdx.x & 31;
+    grp.nt = 32;
+    grp.red = nullptr;
+    base += (size_t)slot * lane_values(m, n, a.rows);
+  } else {
+    lane = blockIdx.x;
+    grp.tid = threadIdx.x;
+    grp.nt = blockDim.x;
+    grp.red = base;
+    base += GROUP_RED_VALUES;
+  }
+  const LaneMem<T> lm(base, m, n);
+  const int tid = grp.tid, nt = grp.nt;
   T *ls_dir = a.ls_dir + lane * n;
 
   if (a.done[lane]) {
@@ -72,6 +101,8 @@ __global__ void __launch_bounds__(MAX_THREADS) prologue_kernel(Args<T> a) {
   const T gamma = a.gamma[lane];
   const bool valid = a.valid[lane] != 0;
 
+  if (staged) stage_rows(hs, hy, lm.rows, count, 0, m, n, tid, nt);
+
   T sm[5] = {T(0), T(0), T(0), T(0), T(0)};  // s.y, s.s, y.y, x.x, g.g
   for (int j = tid; j < n; j += nt) {
     const T sv = s_new[j], yv = y_new[j], xv = x[j], gv = g[j];
@@ -81,30 +112,75 @@ __global__ void __launch_bounds__(MAX_THREADS) prologue_kernel(Args<T> a) {
     sm[3] += xv * xv;
     sm[4] += gv * gv;
   }
-  // The barriers inside also order every thread's reads of count and gamma
-  // above before thread 0's writes below.
-  block_sum<T, 5>(sm, red);
+  // Every thread has read count and gamma before thread 0 writes them: in
+  // block mode the reduction's barrier orders them, in warp mode the sync.
+  grp.template sum<5>(sm);
+  if (WARP) grp.sync();
 
   const Push<T> p = push_gate(valid, sm[0], sm[1], sm[2], count, m, gamma);
+  // On chip the history is a ring: after a full history's shift its oldest
+  // row (physical 0) holds the new pair and age k sits at (1 + k) mod m.
+  const int head = (p.accept && p.full && staged) ? 1 : 0;
+  if (staged) cp_wait<0>();
+  T *st_s = lm.rows + (size_t)p.slot * n;
+  T *st_y = lm.rows + (size_t)(m + p.slot) * n;
+  if (p.accept && p.full && staged) {
+    st_s = lm.rows;
+    st_y = lm.rows + (size_t)m * n;
+  }
   for (int j = tid; j < n; j += nt) {
-    push_element(p, hs, hy, m, n, j, s_new[j], y_new[j]);
-    q[j] = g[j];
+    const T sv = s_new[j], yv = y_new[j];
+    if (p.accept) {
+      if (p.full && staged) {
+        for (int r = 0; r < m - 1; ++r) {
+          const size_t o = (size_t)r * n + j, o1 = o + n;
+          hs[o] = lm.rows[o1];
+          hy[o] = lm.rows[(size_t)m * n + o1];
+        }
+      } else if (p.full) {
+        // Rows r+1 .. r+SHIFT_BATCH are loaded before any is stored, so
+        // their loads are in flight together.
+        for (int r0 = 0; r0 < m - 1; r0 += SHIFT_BATCH) {
+          T bs[SHIFT_BATCH], by[SHIFT_BATCH];
+#pragma unroll
+          for (int c = 0; c < SHIFT_BATCH; ++c) {
+            const size_t o1 = (size_t)(r0 + c + 1) * n + j;
+            bs[c] = r0 + c < m - 1 ? hs[o1] : T(0);
+            by[c] = r0 + c < m - 1 ? hy[o1] : T(0);
+          }
+#pragma unroll
+          for (int c = 0; c < SHIFT_BATCH; ++c)
+            if (r0 + c < m - 1) {
+              hs[(size_t)(r0 + c) * n + j] = bs[c];
+              hy[(size_t)(r0 + c) * n + j] = by[c];
+            }
+        }
+      }
+      hs[(size_t)p.slot * n + j] = sv;
+      hy[(size_t)p.slot * n + j] = yv;
+      if (staged) {
+        st_s[j] = sv;
+        st_y[j] = yv;
+      }
+    }
+    lm.q[j] = g[j];
   }
 
-  two_loop(hs, hy, q, p.new_count, p.new_gamma, n, alphas, rhos, usables,
-           red);
+  two_loop_rows(grp, lm, hs, hy, a.rows, p.new_count, head, m, n,
+                p.new_gamma);
 
   T dq[2] = {T(0), T(0)};  // g.q, q.q
   for (int j = tid; j < n; j += nt) {
-    const T qj = q[j];
+    const T qj = lm.q[j];
     dq[0] += g[j] * qj;
     dq[1] += qj * qj;
   }
-  block_sum<T, 2>(dq, red);
+  grp.template sum<2>(dq);
   const Descent<T> ds =
       descent_check(dq[0], dq[1], sm[4], sm[3], p.new_count);
 
-  for (int j = tid; j < n; j += nt) ls_dir[j] = -(ds.invalid ? g[j] : q[j]);
+  for (int j = tid; j < n; j += nt)
+    ls_dir[j] = -(ds.invalid ? g[j] : lm.q[j]);
   if (tid == 0) {
     a.alpha[lane] = ds.alpha0;
     a.dginit[lane] = ds.dginit;
@@ -113,18 +189,27 @@ __global__ void __launch_bounds__(MAX_THREADS) prologue_kernel(Args<T> a) {
   }
 }
 
-template <typename T>
-int launch(const T *x, const T *g, const T *s_new, const T *y_new,
-           const unsigned char *valid, const unsigned char *done, T *s, T *y,
-           int *count, T *gamma, T *ls_dir, T *alpha, T *dginit, int b, int n,
-           int m, cudaStream_t stream) {
-  if (b <= 0) return 0;
-  const size_t smem = two_loop_smem<T>(m, n);
-  if (int err = allow_smem(prologue_kernel<T>, smem)) return err;
-  Args<T> a{x, g, s_new, y_new, valid, done, s, y, count, gamma, ls_dir,
-            alpha, dginit, n, m};
-  prologue_kernel<T><<<b, block_threads(n), smem, stream>>>(a);
+template <typename T, bool WARP, bool WIDE>
+int launch_as(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
+  const size_t smem = mapping_smem(mp, a.m, a.n, sizeof(T));
+  if (int err = allow_smem(prologue_kernel<T, WARP, WIDE>, smem)) return err;
+  const int blocks = WARP ? (a.b + mp.lpb - 1) / mp.lpb : a.b;
+  const int threads = WARP ? 32 * mp.lpb : mp.tpl;
+  prologue_kernel<T, WARP, WIDE><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
+  if (a.b <= 0) return 0;
+  if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
+      mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) || mp.rows < 0 ||
+      mp.rows > ROWS_DIRECT || 32 * mp.lpb > WARP_BLOCK_THREADS ||
+      (mp.rows == ROWS_DIRECT && a.n > DIRECT_ELEMENTS * mp.tpl))
+    return (int)cudaErrorInvalidValue;
+  if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
+  return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)
+                                 : launch_as<T, false, false>(a, mp, stream);
 }
 
 }  // namespace
@@ -134,12 +219,15 @@ int launch(const T *x, const T *g, const T *s_new, const T *y_new,
                       const void *y_new, const void *valid,                 \
                       const void *done, void *s, void *y, void *count,      \
                       void *gamma, void *ls_dir, void *alpha, void *dginit, \
-                      int b, int n, int m, void *stream) {                  \
-    return launch<T>((const T *)x, (const T *)g, (const T *)s_new,          \
-                     (const T *)y_new, (const unsigned char *)valid,        \
-                     (const unsigned char *)done, (T *)s, (T *)y,           \
-                     (int *)count, (T *)gamma, (T *)ls_dir, (T *)alpha,     \
-                     (T *)dginit, b, n, m, (cudaStream_t)stream);           \
+                      int b, int n, int m, int lanes_per_block,             \
+                      int threads_per_lane, int rows, void *stream) {     \
+    Args<T> a{(const T *)x, (const T *)g, (const T *)s_new,                 \
+              (const T *)y_new, (const unsigned char *)valid,               \
+              (const unsigned char *)done, (T *)s, (T *)y, (int *)count,    \
+              (T *)gamma, (T *)ls_dir, (T *)alpha, (T *)dginit, b, n, m,    \
+              rows};                                                        \
+    return launch<T>(a, Mapping{lanes_per_block, threads_per_lane, rows},   \
+                     (cudaStream_t)stream);                                 \
   }
 
 CPPNS_PROLOGUE(cppns_lbfgs_prologue_f32, float)

@@ -24,10 +24,16 @@ Three parts:
   status is CONTINUE, which costs one device-to-host read per trip; the
   number of trips is returned.
 
-Layout is batch-major: vectors ``(B, n)``, history ``(B, m, n)`` in
-chronological order (row 0 the oldest), the plateau ring ``(B, 8)`` and
-all per-lane scalars packed into ``sf (B, 19)`` (float) and ``si (B, 12)``
-(int32) with the row indices of the JAX kernel, so rows compare one to one.
+Layout is batch-major: vectors ``(B, n)``, history ``(B, m, n)``, the
+plateau ring ``(B, 8)`` and all per-lane scalars packed into ``sf (B, 19)``
+(float) and ``si (B, 13)`` (int32).  Rows 0-11 of ``si`` and all of ``sf``
+have the row indices of the JAX kernel, so they compare one to one; row 12
+is the head of the history ring.  Inside the loop the history is a ring:
+row k in age order (0 the oldest) is physical row ``(head + k) mod m``, and
+an accepted pair writes one row and, once the history is full, advances the
+head, where the JAX kernel shifts every row.  :func:`flat_lbfgs_solve`
+returns the history in chronological order (one gather at exit), as the
+JAX kernel leaves it.
 
 One semantic difference from the JAX flat kernel, on purpose: ``infoc``
 (``cstep``'s case code) is carried across trips of a search as MINPACK and
@@ -51,7 +57,7 @@ from ..core.progress import (
 )
 from ..core.status import Status
 from .two_loop import (
-    push_history,
+    push_gate,
     search_direction,
     two_loop_direction_reference,
 )
@@ -59,9 +65,9 @@ from ._kernel import (
     SMEM_LIMIT as _SMEM_LIMIT,
     check_args,
     check_float,
-    check_smem,
+    lane_mapping,
     launch,
-    two_loop_smem_bytes as flat_trip_smem_bytes,
+    mapping_smem_bytes,
 )
 from ..linesearch.more_thuente import (
     _FTOL,
@@ -77,6 +83,8 @@ __all__ = [
     "flat_trip",
     "flat_trip_reference",
     "flat_lbfgs_solve",
+    "flat_trip_smem_bytes",
+    "history_in_age_order",
 ]
 
 # Packed float scalar rows (same indices as the JAX kernel).
@@ -114,7 +122,8 @@ _I_STAGE1 = 8
 _I_LSNFEV = 9
 _I_INFO = 10
 _I_INFOC = 11
-_NI = 12
+_I_HEAD = 12     # history ring: physical row of the oldest pair
+_NI = 13
 
 _CONT = int(Status.CONTINUE)
 
@@ -127,7 +136,7 @@ class FlatState:
     g0: torch.Tensor    # (B, n) its gradient
     sdir: torch.Tensor  # (B, n) search direction
     gacc: torch.Tensor  # (B, n) gradient at the accepted trial
-    s: torch.Tensor     # (B, m, n) history, chronological
+    s: torch.Tensor     # (B, m, n) history, a ring from si[:, _I_HEAD]
     y: torch.Tensor     # (B, m, n)
     ring: torch.Tensor  # (B, PAST_RING_SIZE) plateau ring
     sf: torch.Tensor    # (B, _NF) float scalars
@@ -142,6 +151,22 @@ class FlatState:
 
 def _rdot(a, b):
     return torch.sum(a * b, dim=-1)
+
+
+def history_in_age_order(buf, head):
+    """The ring ``buf`` ``(B, m, n)`` with row k at physical row
+    ``(head + k) mod m``, as a chronological ``(B, m, n)`` tensor."""
+    m = buf.shape[1]
+    rows = (head.long()[:, None]
+            + torch.arange(m, device=buf.device)[None, :]) % m
+    return torch.gather(buf, 1, rows[..., None].expand(-1, -1, buf.shape[2]))
+
+
+def flat_trip_smem_bytes(m: int, n: int, itemsize: int) -> int:
+    """Shared memory of the ``flat_trip`` block of a one-lane batch under
+    :func:`~._kernel.lane_mapping`'s choice; the wrapper raises above
+    ``_SMEM_LIMIT``."""
+    return mapping_smem_bytes("flat_trip", 1, n, m, itemsize)
 
 
 def init_flat_state(state0: FunctionState, m: int, max_fev: int):
@@ -332,10 +357,21 @@ def flat_trip_reference(
     push_live = boundary & (status1 == _CONT)
     valid = push_live & finite
 
-    s_o, y_o, new_count, new_gamma = push_history(
-        st.s, st.y, count, frow(_F_GAMMA), s_new, y_new, valid
-    )
-    q = two_loop_direction_reference(g1, s_o, y_o, new_count, new_gamma)
+    # The push into the ring: one row, at the age ``count`` slot, or over
+    # the oldest row of a full history, whose head then moves on.
+    m = st.s.shape[1]
+    head = irow(_I_HEAD)
+    accept, full, new_count, new_gamma = push_gate(
+        count, frow(_F_GAMMA), s_new, y_new, valid, m)
+    slot = torch.where(full, head, (head + count) % m)
+    new_head = torch.where(accept & full, (head + 1) % m, head)
+    rows = torch.arange(m, device=x0.device)
+    write = (accept[:, None] & (slot[:, None] == rows[None, :]))[..., None]
+    s_o = torch.where(write, s_new[:, None, :], st.s)
+    y_o = torch.where(write, y_new[:, None, :], st.y)
+    q = two_loop_direction_reference(
+        g1, history_in_age_order(s_o, new_head),
+        history_in_age_order(y_o, new_head), new_count, new_gamma)
 
     ls_dir_new, alpha0, dginit_new, invalid = search_direction(
         x1, g1, q, new_count)
@@ -397,6 +433,7 @@ def flat_trip_reference(
     si_new[_I_LSNFEV] = sel3(ifull(0), ls_nfev1)
     si_new[_I_INFO] = sel3(info0, info1)
     si_new[_I_INFOC] = sel3(ifull(1), infoc1)
+    si_new[_I_HEAD] = sel3(new_head, head)
 
     st.ring.copy_(torch.where(col(boundary), pr.past_ring, st.ring))
     st.s.copy_(s_o)
@@ -454,12 +491,13 @@ def flat_trip(
     if dev.type == "cpu":
         flat_trip_reference(st, f_t, g_t, x_trial, stopping, max_fev)
         return
-    check_smem("flat_trip", m, n, st.x0.element_size())
+    mapping = lane_mapping("flat_trip", b, n, m, st.x0.element_size())
     launch(
         "flat_trip", dev, st.x0.dtype,
         (st.x0, st.g0, st.sdir, st.gacc, st.s, st.y, st.ring, st.sf, st.si,
          f_t, g_t, x_trial),
-        (b, n, m, int(max_fev), *crit_scalars(stopping)),
+        (b, n, m, int(max_fev), *mapping.scalars(),
+         *crit_scalars(stopping)),
     )
     flat_trip.launches += 1
 
@@ -518,8 +556,10 @@ def flat_lbfgs_solve(
         past_ring=st.ring,
         past_pos=st.si[:, _I_PASTPOS].clone(),
     )
+    head = st.si[:, _I_HEAD]
     return FlatSolveResult(
-        state=state, progress=progress, s=st.s, y=st.y,
+        state=state, progress=progress,
+        s=history_in_age_order(st.s, head), y=history_in_age_order(st.y, head),
         count=st.si[:, _I_COUNT].clone(), gamma=st.sf[:, _F_GAMMA].clone(),
         trips=trips,
     )

@@ -40,7 +40,7 @@ from ..core.progress import (
     update_progress,
 )
 from ..core.tree import tree_where
-from ._kernel import check_args, check_float, check_smem, launch
+from ._kernel import check_args, check_float, lane_mapping, launch
 from .flat_solve import crit_scalars
 from .two_loop import (
     push_history,
@@ -124,7 +124,7 @@ def lbfgs_prologue(
             x, gradient, s_memory, y_memory, mem_count, gamma, s_new, y_new,
             valid, done,
         )
-    check_smem("lbfgs_prologue", m, n, x.element_size())
+    mapping = lane_mapping("lbfgs_prologue", b, n, m, x.element_size())
     ls_dir = torch.empty_like(gradient)
     alpha_init = torch.empty_like(gamma)
     dginit = torch.empty_like(gamma)
@@ -132,7 +132,7 @@ def lbfgs_prologue(
         "lbfgs_prologue", dev, dtype,
         (x, gradient, s_new, y_new, valid, done, s_memory, y_memory,
          mem_count, gamma, ls_dir, alpha_init, dginit),
-        (b, n, m),
+        (b, n, m, *mapping.scalars()),
     )
     lbfgs_prologue.launches += 1
     return ls_dir, alpha_init, dginit, s_memory, y_memory, mem_count, gamma

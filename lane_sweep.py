@@ -1,0 +1,207 @@
+#!/usr/bin/env python3
+"""Time ``flat_trip`` and ``lbfgs_prologue`` under every lane mapping on one GPU.
+
+    python3 lane_sweep.py                      # from the repository root
+    python3 lane_sweep.py --baseline DIR       # also time DIR's package
+
+For each shape the two kernels run at in ``chip_smoke.py`` it forces each
+lane mapping (``ops/_kernel.py::_pick``: lanes per block, threads per lane,
+where the history rows are read) and records the kernel's device time per
+launch with ``torch.profiler`` (float32, m = 10):
+
+* ``flat_trip``: 30 trips of a solve with the shipped mapping, then 40
+  trips from a copy of that state under each mapping; one trip of each is
+  also held against the plain version (largest scaled error of the
+  direction, and whether the int scalars are equal);
+* ``lbfgs_prologue``: a traced solve cut at 40 iterations per mapping.
+
+``--baseline DIR`` times the package of another checkout (for example the
+parent commit unpacked with ``git archive``) at its own mappings in a
+subprocess, for a comparison within one call.  The record goes to
+``chiprun_out/lane_sweep.json``; each line is printed as it is measured.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+FLAT_SHAPES = [(1024, 32), (8192, 32), (1024, 1024), (256, 4096)]
+PROLOGUE_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048),
+                   (256, 4096)]
+M = 10
+
+
+def variants(K, n, op):
+    """``None`` (the shipped mapping) and the forced ones at width ``n``;
+    ``flat_trip`` takes no staged rows."""
+    S, T, D = K.ROWS_STREAM, K.ROWS_STAGED, K.ROWS_DIRECT
+    modes = (S,) if op == "flat_trip" else (T, S)
+    if n <= 64:
+        return [None] + [(lpb, 32, rows) for lpb in (1, 2, 4, 8)
+                         for rows in (D,) + modes[:-1]]
+    out = [None]
+    for tpl in (64, 128, 256, 512):
+        if tpl * 16 < n or tpl > n:
+            continue
+        for rows in modes:
+            if K.lane_smem_bytes(M, n, 4, rows, 1, False) <= K.SMEM_LIMIT:
+                out.append((1, tpl, rows))
+    return out
+
+
+def device_us(prof, key):
+    events = [e for e in prof.key_averages() if key in e.key]
+    total = sum(getattr(e, "device_time_total", 0) for e in events)
+    count = sum(e.count for e in events)
+    return total / max(count, 1), count
+
+
+def measure(root, forced):
+    """Time the package under ``root``; ``forced`` sweeps the mappings."""
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import cppnumericalsolvers_tpu_torch as cns
+    from cppnumericalsolvers_tpu_torch.ops import flat_solve as fs
+
+    K = None
+    if forced:
+        from cppnumericalsolvers_tpu_torch.ops import _kernel as K
+        shipped = K._pick
+
+    def force(v):
+        if K is None:
+            return
+        if v is None:
+            K._pick = shipped
+            return
+        lpb, tpl, rows = v
+
+        def pick(op, b, n, m, w):
+            return lpb, tpl, rows, K.lane_smem_bytes(m, n, w, rows, lpb,
+                                                     tpl == 32)
+        K._pick = pick
+
+    dev = torch.device("cuda")
+    obj = cns.models.pairwise_rosenbrock()
+    stop = cns.default_stopping(torch.float32)
+
+    def start(b, n):
+        x0 = np.random.default_rng(0).uniform(-2.0, 2.0, (b, n))
+        return torch.from_numpy(x0).to(dev, torch.float32)
+
+    out = {}
+    for b, n in FLAT_SHAPES:
+        force(None)
+        st, xt = fs.init_flat_state(obj.evaluate(start(b, n)), M, 20)
+        for _ in range(30):
+            f, g = obj.batched_value_and_grad(xt)
+            fs.flat_trip(st, f, g, xt, stop, 20)
+        for v in (variants(K, n, "flat_trip") if K else [None]):
+            force(v)
+            s1, x1 = st.clone(), xt.clone()
+            f, g = obj.batched_value_and_grad(x1)
+            s2, x2 = s1.clone(), x1.clone()
+            fs.flat_trip(s1, f, g, x1, stop, 20)
+            fs.flat_trip_reference(s2, f, g, x2, stop, 20)
+            err = float(((s1.sdir - s2.sdir).abs().amax(1)
+                         / s2.sdir.abs().amax(1).clamp_min(1e-30)).max())
+            same = bool((s1.si == s2.si).all())
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(40):
+                    f, g = obj.batched_value_and_grad(x1)
+                    fs.flat_trip(s1, f, g, x1, stop, 20)
+                torch.cuda.synchronize()
+            us, count = device_us(prof, "flat_trip")
+            key = f"flat_trip {b}x{n} {v or 'shipped'}"
+            out[key] = {"us": us, "launches": count, "direction_err": err,
+                        "ints_equal": same}
+            print("[sweep]", key, json.dumps(out[key]), flush=True)
+    solver = cns.Lbfgs(m=M, max_linesearch_fev=20)
+    for b, n in PROLOGUE_SHAPES:
+        for v in (variants(K, n, "lbfgs_prologue") if K else [None]):
+            force(v)
+            cns.minimize_batched(obj, start(b, n), solver,
+                                 stop.replace(max_iterations=2), trace=1)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                cns.minimize_batched(obj, start(b, n), solver,
+                                     stop.replace(max_iterations=40), trace=1)
+                torch.cuda.synchronize()
+            us, count = device_us(prof, "prologue_kernel")
+            key = f"lbfgs_prologue {b}x{n} {v or 'shipped'}"
+            out[key] = {"us": us, "launches": count}
+            print("[sweep]", key, json.dumps(out[key]), flush=True)
+    force(None)
+    return out
+
+
+def baseline_ptxas(root) -> dict:
+    """Registers and spills of the two kernels in checkout ``root``, built
+    with this checkout's nvcc flags."""
+    from cppnumericalsolvers_tpu_torch.ops import _build
+
+    out = {}
+    for name in ("flat_trip", "lbfgs_prologue"):
+        src = os.path.join(os.path.abspath(root), "cppnumericalsolvers_tpu_torch",
+                           "ops", "csrc", f"{name}.cu")
+        proc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.devnull, src],
+            capture_output=True, text=True)
+        for fn, regs, stores, loads in _build.parse_ptxas(
+                proc.stdout + proc.stderr):
+            out[fn] = [regs, stores, loads]
+            print(f"[baseline ptxas] {name} {fn}: {regs} registers, "
+                  f"{stores}/{loads} bytes spilled", flush=True)
+    return out
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="another checkout to time")
+    parser.add_argument("--only", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("lane_sweep: no CUDA device is available", file=sys.stderr)
+        return 1
+    if args.only:
+        print("RESULT " + json.dumps(measure(args.only, forced=False)))
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    print("[card]", card, flush=True)
+    sys.path.insert(0, ROOT)
+    record = {"card": card, "sweep": measure(ROOT, forced=True)}
+    if args.baseline:
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--only",
+             os.path.abspath(args.baseline)], capture_output=True, text=True)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("RESULT ")]
+        if proc.returncode or not lines:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return 1
+        record["baseline"] = json.loads(lines[-1][len("RESULT "):])
+        record["baseline_ptxas"] = baseline_ptxas(args.baseline)
+        for key, val in record["baseline"].items():
+            print("[baseline]", key, json.dumps(val), flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "lane_sweep.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
