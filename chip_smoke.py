@@ -11,9 +11,10 @@ Lbfgs(m=10))``:
 * the iteration-granular loop (``trace=``, ``internals=``, ``resume``), whose
   iteration is one ``lbfgs_prologue`` launch, one ``mt_trip`` launch per
   evaluation of the batched line search, and one ``lbfgs_epilogue`` launch;
-* path A, that loop on the batch-minor history: ``lbfgs_prologue_t`` in
-  place of ``lbfgs_prologue`` (routed by ``Lbfgs._TRANSPOSED_N_MAX``, which
-  the script sets so that the path runs whatever the shipped value is);
+* path A, that loop on the batch-minor history (a ring per lane):
+  ``lbfgs_prologue_t`` in place of ``lbfgs_prologue`` (routed by
+  ``Lbfgs._TRANSPOSED_N_MAX``, which the script sets so that the path runs
+  whatever the shipped value is);
 * path B, a second-mode objective with the Hessian-condition criterion on:
   the generic loop body over ``Lbfgs.step``, whose iteration is one
   ``push_two_loop`` launch (``lbfgs_push_and_direction``), the search's
@@ -35,7 +36,11 @@ Phases (each raises on failure, so the script then exits non-zero):
            Nested: the same for every call of the three kernels during a
            plain-version solve run to its end, at every shape the nested
            path runs at, so that done lanes, full-history pushes and the
-           statuses that end a lane are compared too;
+           statuses that end a lane are compared too; the batch-minor loop
+           also where n is not a multiple of four and where its lane tiles
+           and slices of j are ragged, and its prologue on made-up inputs
+           (chronological, and on a ring whose heads differ by lane) at
+           every launch plan the solves do not take;
 4. main    flat: ``minimize_batched`` in float32 on the pairwise extended
            Rosenbrock at the throughput-grid shapes, launch counts set to 0
            just before and read just after; the result is held against the
@@ -105,6 +110,15 @@ NESTED_TRACE = 16               # trace capacity on the main path
 NESTED_TIMED_ITERATIONS = 40    # depth of the spin-padded nested solves
 # The batch-minor loop (path A) and the routing measurement.
 T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
+# The batch-minor loop is also held against its plain versions where n is
+# not a multiple of four (mt_trip's 4-byte loads, a warp and a block per
+# lane) and where a lane tile (8 lanes) and the cluster's slices of j are
+# ragged.
+T_PARITY_SHAPES = T_SHAPES + [(1001, 30), (1024, 102)]
+# Made-up calls of the batch-minor prologue at launch plans that the solves
+# above do not take: one block per tile (8192, 32), clusters of 2 (2048,
+# 256), 16 elements a thread (256, 4096), a ragged tile (1001, 30).
+T_MADE_UP_SHAPES = [(8192, 32), (2048, 256), (256, 4096), (1001, 30)]
 PATH_A_SHAPES = [(1024, 32), (512, 2048)]
 # Path B: the Hessian is (B, n, n), so n stays small; the larger shape's
 # solves are cut at this many iterations.  The criterion is this factor
@@ -321,7 +335,7 @@ def main() -> int:
             log(f"[parity] nested {dname} ({b}, {n}) covered: "
                 + json.dumps(cover))
             check_cover(cover, b, n)
-        for b, n in T_SHAPES:
+        for b, n in T_PARITY_SHAPES:
             t0 = time.perf_counter()
             nested, cover = nested_parity(mods, obj, start(b, n, dtype),
                                           dname, batch_minor=True)
@@ -335,6 +349,7 @@ def main() -> int:
             check_cover(cover, b, n)
         made = [(shape, ("lbfgs_prologue", "lbfgs_prologue_t"))
                 for shape in RESET_SHAPES]
+        made += [(shape, ("lbfgs_prologue_t",)) for shape in T_MADE_UP_SHAPES]
         made += [(shape, ("push_two_loop",)) for shape in PUSH_SHAPES]
         made += [(shape, ("two_loop",)) for shape in TWO_LOOP_SHAPES]
         for (b, n), names in made:
@@ -756,15 +771,22 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
              "epilogue_nonfinite_lane_calls": 0,
              "ended_on_status": {}}
 
-    def prologue(x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done):
-        k = [t.clone() for t in (s_mem, y_mem, count, gamma)]
+    def prologue(x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done,
+                 *head):
+        # The batch-minor loop passes its ring's head (path A).
+        k = [t.clone() for t in (s_mem, y_mem, count, gamma, *head)]
         count0, newest0 = count.clone(), rows(s_mem)[:, -n:].clone()
+        head0 = [h.clone() for h in head]
         kd, ka, kg, *_ = kernels[pname](
-            x, g, *k, s_new, y_new, valid, done)
+            x, g, *k[:4], s_new, y_new, valid, done, *k[4:])
         out = plain[pname](
-            x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done)
+            x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done,
+            *head)
         torch.cuda.synchronize()
-        cmps[pname].add(b, {"mem_count": (k[2], count)}, {
+        ints = {"mem_count": (k[2], count)}
+        if head:
+            ints["head"] = (k[4], head[0])
+        cmps[pname].add(b, ints, {
             "ls_dir": (kd, out[0], True), "alpha_init": (ka, out[1], False),
             "dginit": (kg, out[2], False),
             "s_memory": (rows(k[0]), rows(s_mem), True),
@@ -772,9 +794,16 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
             "gamma": (k[3], gamma, False),
         })
         cover["prologue_done_lane_calls"] += int(done.sum())
-        cover["full_history_pushes"] += int(
-            ((count0 >= M) & (rows(s_mem)[:, -n:] != newest0).any(1)).sum())
+        # A push into a full history shifts it (batch-major) or moves the
+        # ring's head on (batch-minor).
+        pushed = ((head[0] != head0[0]) if head
+                  else (rows(s_mem)[:, -n:] != newest0).any(1))
+        cover["full_history_pushes"] += int(((count0 >= M) & pushed).sum())
         cover["prologue_history_resets"] += int((count < count0).sum())
+        if head:
+            cover["heads_out_of_step_tiles"] = max(
+                cover.get("heads_out_of_step_tiles", 0),
+                mixed_tiles(head[0], done))
         return out
 
     def trip(x0_, sdir, f_t, g_t, st, max_fev):
@@ -840,6 +869,21 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
     cover["trips"] = res.trips
     return {name: cmps[name].result(fn.launches - launches0[name])
             for name, fn in kernels.items()}, cover
+
+
+def mixed_tiles(head, done, tile=8) -> int:
+    """Tiles of ``tile`` neighbouring lanes whose live lanes' ring heads
+    differ: the batch-minor prologue reads one sector per history element
+    only where they agree."""
+    import torch
+
+    b = head.shape[0]
+    pad = -b % tile
+    h = torch.cat([head, head.new_full((pad,), -1)]).view(-1, tile)
+    live = torch.cat([~done, done.new_zeros(pad)]).view(-1, tile)
+    big = torch.where(live, h, torch.full_like(h, -1)).amax(1)
+    small = torch.where(live, h, torch.full_like(h, 1 << 30)).amin(1)
+    return int(((big >= 0) & (big != small)).sum())
 
 
 def check_cover(cover, b, n, edge=False) -> None:
@@ -1111,7 +1155,11 @@ def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     reads its info code.  ``lbfgs_prologue``: a live lane reads x, g and the
     pending pair, reads the history rows its two-loop uses, writes the rows
     that changed (one, or all m when a full history shifts) and the
-    direction; a done lane writes a zero direction.  ``lbfgs_epilogue``: a
+    direction; a done lane writes a zero direction.  ``lbfgs_prologue_t``:
+    the same, but its history is a ring, so an accepted pair writes one row
+    pair whether or not the history is full, and a live lane reads and
+    writes its head; the count with a shifting history is kept beside it
+    (``bound_ms_shift``).  ``lbfgs_epilogue``: a
     live lane reads x0, g0 and the search's x and g and writes x, g and the
     pending pair; a done lane reads its flag.  Scalars count for live lanes."""
     import torch
@@ -1121,14 +1169,16 @@ def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     w = x0.element_size()
     eps = torch.finfo(x0.dtype).eps
     kernels, _, pname = mods.nested(batch_minor)
-    tot = {name: {"bytes": 0.0, "ops": 0.0, "calls": 0} for name in kernels}
+    tot = {name: {"bytes": 0.0, "ops": 0.0, "calls": 0}
+           for name in (*kernels, "shift")}
 
     def add(name, byts, ops):
         tot[name]["bytes"] += float(byts.sum())
         tot[name]["ops"] += float(ops.sum())
         tot[name]["calls"] += 1
 
-    def prologue(x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done):
+    def prologue(x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done,
+                 *head):
         live = ~done
         sy, s2, y2 = ((a * c).sum(1) for a, c in
                       ((s_new, y_new), (s_new, s_new), (y_new, y_new)))
@@ -1137,14 +1187,23 @@ def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
         full = c0 >= M
         c1 = torch.where(accept & ~full, c0 + 1, c0)
         hist_read = 2 * n * (c1 - accept.long()).clamp(min=0)
-        hist_write = torch.where(
+        shift_write = torch.where(
             accept, torch.where(full, 2 * M * n, 2 * n), 0)
-        elems = torch.where(live, 5 * n + hist_read + hist_write, n)
-        add(pname,
-            elems * w + torch.where(live, 4 * w + 2 * 4 + 2, 2 * w + 1),
-            torch.where(live, 14 * n + 10 * n * c1, 0))
+        # The batch-minor history is a ring (a head read and written per
+        # live lane): an accepted pair writes one row pair.  The
+        # batch-major history shifts.
+        hist_write = torch.where(accept, 2 * n, 0) if head else shift_write
+        scal = torch.where(live, 4 * w + 2 * 4 + 2 + (8 if head else 0),
+                           2 * w + 1)
+        ops = torch.where(live, 14 * n + 10 * n * c1, 0)
+        add(pname, torch.where(live, 5 * n + hist_read + hist_write, n) * w
+            + scal, ops)
+        if head:
+            add("shift", torch.where(
+                live, 5 * n + hist_read + shift_write, n) * w + scal, ops)
         return kernels[pname](
-            x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done)
+            x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done,
+            *head)
 
     def trip(x0_, sdir, f_t, g_t, st, max_fev):
         active = st.si[:, fl._I_INFO] == 0
@@ -1169,6 +1228,8 @@ def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     dname = str(x0.dtype).split(".")[1]
     out = {}
     for name, t in tot.items():
+        if not t["calls"]:
+            continue
         bytes_ms = t["bytes"] / t["calls"] / HBM_BYTES_PER_S * 1e3
         ops_ms = t["ops"] / t["calls"] / PEAK_OPS_PER_S[dname] * 1e3
         out[name] = {
@@ -1177,6 +1238,12 @@ def nested_work(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         }
+    if "shift" in out:
+        # The same calls counted with a shifting history, as before the
+        # batch-minor history became a ring.
+        shift = out.pop("shift")
+        out[pname]["bytes_per_call_shift"] = shift["bytes_per_call"]
+        out[pname]["bound_ms_shift"] = shift["bound_ms"]
     return out
 
 
@@ -1393,41 +1460,80 @@ def made_up_parity(mods, dname, b, n, names) -> dict:
     out = {}
 
     def compare(name, ints, floats):
-        cmp = Compare(RTOL[dname], {"ls_dir": DIRECTION_RTOL[dname],
-                                    "direction": DIRECTION_RTOL[dname]})
+        if name not in cmps:
+            cmps[name] = Compare(RTOL[dname], {
+                "ls_dir": DIRECTION_RTOL[dname],
+                "direction": DIRECTION_RTOL[dname]})
         torch.cuda.synchronize()
-        cmp.add(b, ints, floats)
-        out[name] = cmp.result(1)
+        cmps[name].add(b, ints, floats)
+        out[name] = cmps[name].result(cmps[name].calls)
 
+    cmps = {}
     for name in names:
         if name in ("lbfgs_prologue", "lbfgs_prologue_t"):
             minor = name == "lbfgs_prologue_t"
             conv = ft.history_rows_to_t if minor else torch.clone
             rows = (lambda h: h.t()) if minor else (
                 lambda h: h.reshape(b, -1))
-            k = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
-                 a["gamma"].clone()]
-            p = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
-                 a["gamma"].clone()]
-            rest = (a["s_new"], a["y_new"], a["valid"], a["done"])
-            kd, ka, kg, *_ = mods.wrappers[name](a["x"], a["g"], *k, *rest)
-            pd, pa, pg, *_ = mods.plain_all[name](a["x"], a["g"], *p, *rest)
-            compare(name, {"mem_count": (k[2], p[2])}, {
-                "ls_dir": (kd, pd, True), "alpha_init": (ka, pa, False),
-                "dginit": (kg, pg, False),
-                "s_memory": (rows(k[0]), rows(p[0]), True),
-                "y_memory": (rows(k[1]), rows(p[1]), True),
-                "gamma": (k[3], p[3], False)})
-            resets = int(((k[2] == 0) & (a["count"] > 0) & ~a["done"]).sum())
+            # The batch-minor op runs chronological (no head) and on a
+            # ring whose heads differ from lane to lane.
+            heads = [()]
+            if minor:
+                heads.append((torch.arange(b, device=dev, dtype=torch.int32)
+                              * 7 % M,))
+            resets = 0
+            first = None
+            for head in heads:
+                k = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
+                     a["gamma"].clone(), *(h.clone() for h in head)]
+                p = [conv(a["s"]), conv(a["y"]), a["count"].clone(),
+                     a["gamma"].clone(), *(h.clone() for h in head)]
+                rest = (a["s_new"], a["y_new"], a["valid"], a["done"])
+                kd, ka, kg, *_ = mods.wrappers[name](
+                    a["x"], a["g"], *k[:4], *rest, *k[4:])
+                pd, pa, pg, *_ = mods.plain_all[name](
+                    a["x"], a["g"], *p[:4], *rest, *p[4:])
+                first = first or (kd, ka, kg)
+                ints = {"mem_count": (k[2], p[2])}
+                if head:
+                    ints["head"] = (k[4], p[4])
+                compare(name, ints, {
+                    "ls_dir": (kd, pd, True), "alpha_init": (ka, pa, False),
+                    "dginit": (kg, pg, False),
+                    "s_memory": (rows(k[0]), rows(p[0]), True),
+                    "y_memory": (rows(k[1]), rows(p[1]), True),
+                    "gamma": (k[3], p[3], False)})
+                resets += int(
+                    ((k[2] == 0) & (a["count"] > 0) & ~a["done"]).sum())
+                frozen = all(bool((rows(new)[a["done"]] == rows(conv(old))[
+                    a["done"]]).all()) for new, old in zip(k[:2], (a["s"],
+                                                                   a["y"])))
+                if head:
+                    frozen &= bool((k[4] == head[0])[a["done"]].all())
+                if not frozen or not bool((kd[a["done"]] == 0).all()):
+                    raise AssertionError(
+                        f"{name} {dname} ({b}, {n}) on made-up inputs: done "
+                        "lanes not frozen")
             out[name]["history_resets"] = resets
-            frozen = all(bool((rows(new)[a["done"]] == old.reshape(b, -1)[
-                a["done"]]).all()) for new, old in zip(k[:2], (a["s"],
-                                                               a["y"])))
-            if resets <= 0 or not frozen or not bool(
-                    (kd[a["done"]] == 0).all()):
+            if minor:
+                # The batch-minor kernel adds its sums in the batch-major
+                # kernel's order: on the same (chronological) inputs the two
+                # agree bit for bit (recorded, not required).
+                k = [a["s"].clone(), a["y"].clone(), a["count"].clone(),
+                     a["gamma"].clone()]
+                md, ma, mg, *_ = mods.wrappers["lbfgs_prologue"](
+                    a["x"], a["g"], *k, *rest)
+                torch.cuda.synchronize()
+                out[name]["equals_batch_major_kernel"] = all(
+                    bool(((u == v) | (u.isnan() & v.isnan())).all())
+                    for u, v in zip(first, (md, ma, mg)))
+                log(f"[parity] {name} {dname} ({b}, {n}) on made-up inputs "
+                    "(chronological) bit-equal to lbfgs_prologue: "
+                    f"{out[name]['equals_batch_major_kernel']}")
+            if resets <= 0:
                 raise AssertionError(
-                    f"{name} {dname} ({b}, {n}) on made-up inputs: "
-                    f"{resets} history resets, done lanes frozen: {frozen}")
+                    f"{name} {dname} ({b}, {n}) on made-up inputs: no "
+                    "history reset")
         elif name == "push_two_loop":
             k = [t.clone() for t in (a["s"], a["y"], a["count"], a["gamma"])]
             p = [t.clone() for t in (a["s"], a["y"], a["count"], a["gamma"])]
@@ -1739,6 +1845,14 @@ def routing(mods, obj, x0, solver, stop, major_timing=None) -> dict:
         f"batch-major {row['major_solve_s']:.3f} s {walls[False]}, "
         f"batch-minor {row['minor_solve_s']:.3f} s {walls[True]}; status "
         f"agreement {agree:.4f}")
+    mt = minor["kernels"]["mt_trip"]
+    row["plan"] = mods.ft.prologue_t_launch_plan(b, M, n, x0.element_size())
+    row["mt_mapping"] = vars(mods.fs.lane_mapping("mt_trip", b, n, M, 4))
+    log(f"[routing] ({b}, {n}) float32 batch-minor: lbfgs_prologue_t plan "
+        f"{json.dumps(row['plan'])}, byte bound with a shifting history "
+        f"{row['minor']['bound_ms_shift']:.4f} ms; mt_trip "
+        f"{mt['ms']:.4f} ms/launch (bound {mt['bound_ms']:.4f}, mapping "
+        f"{json.dumps(row['mt_mapping'])})")
     return row
 
 

@@ -18,7 +18,8 @@ the field names of what it is given:
 * a whole ``LbfgsInternalsT`` (those four fields and the pending pair) ->
   the port's :class:`LbfgsInternalsT`: the history batch-minor
   ``(m * n, B)`` with the JAX package's padding (``n8``, ``B_pad``)
-  stripped, the pending pair carried over;
+  stripped, the pending pair carried over, the ring at head 0 (JAX's
+  history is chronological);
 * a whole ``MinimizeResult`` (``state``, ``progress``, ``internals``,
   ``trace``, each converted as above) -> the port's
   :class:`MinimizeResult`, which :func:`~.core.driver.resume` continues.
@@ -118,6 +119,7 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
                 s_pending=tensor(fields["s_pending"]),
                 y_pending=tensor(fields["y_pending"]),
                 pending_valid=tensor(fields["pending_valid"]),
+                head=torch.zeros((b,), dtype=torch.int32, device=device),
             )
         return LbfgsInternals(
             s_memory=tensor(history_t_to_rows(fields["s_memory_t"], b, m, n)),

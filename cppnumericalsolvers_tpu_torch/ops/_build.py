@@ -39,10 +39,10 @@ _CRIT = [_D] * 4 + [_I] * 6
 #: (``cppns_<name>_f32`` and ``cppns_<name>_f64``).
 KERNELS = {
     "flat_trip": [_P] * 12 + [_I] * 7 + _CRIT + [_P],
-    "mt_trip": [_P] * 8 + [_I] * 3 + [_P],
+    "mt_trip": [_P] * 8 + [_I] * 6 + [_P],
     "lbfgs_prologue": [_P] * 13 + [_I] * 6 + [_P],
     "lbfgs_epilogue": [_P] * 22 + [_I] * 2 + _CRIT + [_P],
-    "lbfgs_prologue_t": [_P] * 14 + [_I] * 5 + [_P],
+    "lbfgs_prologue_t": [_P] * 14 + [_I] * 6 + [_P],
     "push_two_loop": [_P] * 9 + [_I] * 3 + [_P],
     "two_loop": [_P] * 6 + [_I] * 3 + [_P],
 }

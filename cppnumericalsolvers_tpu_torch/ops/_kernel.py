@@ -13,7 +13,7 @@ import torch
 import dataclasses
 
 __all__ = ["SMEM_LIMIT", "LaneMapping", "check_args", "check_float",
-           "check_smem", "lane_mapping", "launch",
+           "check_smem", "lane_mapping", "lane_threads", "launch",
            "mapping_smem_bytes", "two_loop_smem_bytes"]
 
 # Shared memory one block may use on Hopper (232,448 bytes).
@@ -108,15 +108,31 @@ def lane_smem_bytes(m: int, n: int, itemsize: int, rows: int,
     return lanes * lane + red
 
 
+def lane_threads(n: int) -> int:
+    """Threads a lane gets at width ``n``: one warp for n <= 64, else 64 to
+    512, each owning 8 elements of a row.  The batch-minor prologue adds its
+    sums in the order these threads give (``fused_step_t.py``)."""
+    if n <= _WARP_N_MAX:
+        return 32
+    return min(_LANE_MAX_THREADS,
+               max(64, -(-n // (32 * _ELEMENTS_PER_THREAD)) * 32))
+
+
 def _pick(op: str, b: int, n: int, m: int, itemsize: int):
     """``(lanes per block, threads per lane, rows, shared memory)``."""
     warp = n <= _WARP_N_MAX
+    tpl = lane_threads(n)
+    if op == "mt_trip":
+        # No history: the block-per-lane kernel's only shared memory is
+        # its reduction scratch (static).
+        if warp:
+            return (min(_MAX_LANES_PER_BLOCK, max(1, b // (2 * _SMS))), 32,
+                    ROWS_DIRECT, 0)
+        return 1, tpl, ROWS_DIRECT, 2 * _RED_SLOTS * _LANE_MAX_WARPS * itemsize
     if warp:
         lpb = min(_MAX_LANES_PER_BLOCK, max(1, b // (2 * _SMS)))
         return lpb, 32, ROWS_DIRECT, lane_smem_bytes(
             m, n, itemsize, ROWS_DIRECT, lpb)
-    tpl = min(_LANE_MAX_THREADS,
-              max(64, -(-n // (32 * _ELEMENTS_PER_THREAD)) * 32))
 
     def smem(rows):
         return lane_smem_bytes(m, n, itemsize, rows, 1, False)
@@ -136,8 +152,9 @@ def mapping_smem_bytes(op: str, b: int, n: int, m: int, itemsize: int
 
 def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
                  ) -> LaneMapping:
-    """Pick the lane mapping of ``flat_trip`` and ``lbfgs_prologue`` (``op``)
-    for a ``(b, n)`` batch with ``m`` history rows.  The rules follow a sweep
+    """Pick the lane mapping of ``flat_trip``, ``lbfgs_prologue`` or
+    ``mt_trip`` (``op``) for a ``(b, n)`` batch with ``m`` history rows
+    (``mt_trip`` has none and ignores ``m``).  The rules follow a sweep
     of every mapping on the card (``lane_sweep.py``; PERF.md).
 
     * n <= 64: a warp per lane, reductions by shuffles alone, the rows read
@@ -150,7 +167,8 @@ def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
       lane runs the two-loop, copies the rows into shared memory instead
       where four such lanes fit an SM (n = 256 at m = 10 in float32); above
       that the shared memory it takes costs more lanes in flight than the
-      reads it saves.
+      reads it saves.  ``mt_trip`` reads no history (``ROWS_DIRECT``) and
+      holds its 8 elements a thread in registers.
 
     Raises ``ValueError`` where the chosen layout does not fit a block."""
     lpb, tpl, rows, need = _pick(op, b, n, m, itemsize)

@@ -6,8 +6,10 @@
 // ladder.  Each kernel source includes this header and is compiled on its own
 // into one shared library with a plain C interface.
 //
-// Design shared by all kernels but lbfgs_prologue_t.cu, which says how it
-// differs.  One thread block per lane (grid = B);
+// Design of the kernels not redesigned for Hopper (lbfgs_epilogue.cu,
+// push_two_loop.cu, two_loop.cu; the others say how they differ, and
+// staged.cuh holds the lane groups of flat_trip.cu, lbfgs_prologue.cu and
+// mt_trip.cu).  One thread block per lane (grid = B);
 // threads stride over n, so each thread owns the same elements j in every
 // vector and history row.  Reductions are warp shuffles plus shared memory,
 // combined across warps in a fixed order, so every thread of a block gets

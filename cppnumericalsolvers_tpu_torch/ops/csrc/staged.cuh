@@ -1,7 +1,9 @@
-// Device code of the two kernels redesigned for Hopper (flat_trip.cu and
-// lbfgs_prologue.cu): a lane group (one warp or one whole block per lane),
-// its reductions, the history rows on chip, and the two-loop recursion over
-// them.  The other kernels compile from common.cuh alone.
+// Device code of the kernels redesigned for Hopper with a lane per warp or
+// block (flat_trip.cu, lbfgs_prologue.cu and, without the history rows,
+// mt_trip.cu): a lane group (one warp or one whole block per lane), its
+// reductions, the history rows on chip, and the two-loop recursion over
+// them.  lbfgs_prologue_t.cu and the kernels not redesigned compile from
+// common.cuh alone.
 //
 // Lanes to threads.  The wrapper picks the mapping
 // (ops/_kernel.py::lane_mapping) and passes it in: at small n a lane is one

@@ -44,7 +44,7 @@ from ..linesearch.more_thuente import (
     trial_setup,
     trip_step,
 )
-from ._kernel import check_args, check_float, launch
+from ._kernel import check_args, check_float, lane_mapping, launch
 
 __all__ = [
     "SearchState",
@@ -196,8 +196,9 @@ def mt_trip(x0, sdir, f_t, g_t, st: SearchState,
             max_fev: int = DEFAULT_MAX_FEV) -> None:
     """One trip, in place on ``st``.  CPU tensors run
     :func:`mt_trip_reference`; CUDA tensors launch the kernel of
-    ``csrc/mt_trip.cu`` on the current stream, or raise.
-    ``mt_trip.launches`` counts kernel launches."""
+    ``csrc/mt_trip.cu`` on the current stream, lanes mapped to threads by
+    :func:`~._kernel.lane_mapping`, or raise.  ``mt_trip.launches`` counts
+    kernel launches."""
     b, n = x0.shape
     dtype = x0.dtype
     check_float("mt_trip", dtype)
@@ -213,9 +214,10 @@ def mt_trip(x0, sdir, f_t, g_t, st: SearchState,
     if dev.type == "cpu":
         mt_trip_reference(x0, sdir, f_t, g_t, st, max_fev)
         return
+    mapping = lane_mapping("mt_trip", b, n, 0, x0.element_size())
     launch("mt_trip", dev, dtype,
            (x0, sdir, f_t, g_t, st.gacc, st.x_trial, st.sf, st.si),
-           (b, n, int(max_fev)))
+           (b, n, int(max_fev), *mapping.scalars()))
     _mt_trip_wrapper.launches += 1
 
 

@@ -40,8 +40,8 @@ from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.flat_solve import flat_lbfgs_solve
 from ..ops.fused_step import lbfgs_epilogue, lbfgs_prologue
 from ..ops.fused_step_t import (
+    gather_rows,
     history_rows_to_t,
-    history_t_to_rows,
     lbfgs_prologue_t,
     make_history_t,
 )
@@ -80,9 +80,11 @@ class LbfgsInternals:
 class LbfgsInternalsT:
     """:class:`LbfgsInternals` with the history in the batch-minor layout of
     ops/fused_step_t.py: ``(m * n, B)``, the batch in the contiguous
-    dimension.  It is the carry of the batch-minor loop and lives only
-    inside it: :meth:`Lbfgs.to_rows` converts it back before a result is
-    returned."""
+    dimension, kept as a ring per lane: the row of age ``k`` (0 the oldest)
+    is physical row ``(head + k) mod m``, so an accepted pair writes one row
+    and nothing shifts.  It is the carry of the batch-minor loop and lives
+    only inside it: :meth:`Lbfgs.to_rows` gathers it chronological before a
+    result is returned."""
 
     s_memory_t: torch.Tensor  # (m*n, B) x-diff history, batch-minor
     y_memory_t: torch.Tensor  # (m*n, B)
@@ -91,6 +93,7 @@ class LbfgsInternalsT:
     s_pending: torch.Tensor  # (B, n)
     y_pending: torch.Tensor  # (B, n)
     pending_valid: torch.Tensor  # (B,) bool
+    head: torch.Tensor  # (B,) int32 physical row of each lane's oldest pair
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,12 +109,11 @@ class Lbfgs(SolverBase):
 
     #: Largest n, and least batch, that the iteration-granular loop runs on
     #: the batch-minor history.  0 routes nothing there: on an NVIDIA H100
-    #: 80GB HBM3 (700 W) the batch-minor prologue took 0.107, 0.167, 0.550
-    #: and 0.970 ms per launch at (1024, 32), (1024, 256), (1024, 1024) and
-    #: (512, 2048) in float32 against the batch-major prologue's 0.017,
-    #: 0.059, 0.138 and 0.135 ms, and whole traced solves on the host clock
-    #: did not separate (PERF.md, the routing table; measured by
-    #: chip_smoke.py's routing phase).
+    #: 80GB HBM3 (700 W) the batch-minor prologue took 0.0309, 0.0732,
+    #: 0.1541 and 0.1934 ms per launch at (1024, 32), (1024, 256), (1024,
+    #: 1024) and (512, 2048) in float32 against the batch-major prologue's
+    #: 0.0139, 0.0316, 0.1183 and 0.1201 ms (PERF.md, the routing table;
+    #: measured by chip_smoke.py's routing phase).
     _TRANSPOSED_N_MAX = 0
     _TRANSPOSED_B_MIN = 128
 
@@ -181,28 +183,32 @@ class Lbfgs(SolverBase):
         if batch_minor:
             return LbfgsInternalsT(
                 s_memory_t=make_history_t(b, self.m, n, dtype, dev),
-                y_memory_t=make_history_t(b, self.m, n, dtype, dev), **rest)
+                y_memory_t=make_history_t(b, self.m, n, dtype, dev),
+                head=zeros(b, dtype=torch.int32), **rest)
         return LbfgsInternals(
             s_memory=zeros(b, self.m, n), y_memory=zeros(b, self.m, n),
             **rest)
 
     def to_batch_minor(self, internals: LbfgsInternals) -> LbfgsInternalsT:
-        """A copy of ``internals`` with the history batch-minor."""
+        """A copy of ``internals`` with the history batch-minor, its ring
+        starting at head 0."""
         it = internals
         return LbfgsInternalsT(
             s_memory_t=history_rows_to_t(it.s_memory),
             y_memory_t=history_rows_to_t(it.y_memory),
             mem_count=it.mem_count, gamma=it.gamma, s_pending=it.s_pending,
             y_pending=it.y_pending, pending_valid=it.pending_valid,
+            head=torch.zeros_like(it.mem_count),
         )
 
     def to_rows(self, internals: LbfgsInternalsT) -> LbfgsInternals:
-        """A copy of ``internals`` with the history ``(B, m, n)``."""
+        """A copy of ``internals`` with the history ``(B, m, n)``,
+        gathered chronological from the ring."""
         it = internals
         n = it.s_pending.shape[1]
         return LbfgsInternals(
-            s_memory=history_t_to_rows(it.s_memory_t, self.m, n),
-            y_memory=history_t_to_rows(it.y_memory_t, self.m, n),
+            s_memory=gather_rows(it.s_memory_t, it.head, self.m, n),
+            y_memory=gather_rows(it.y_memory_t, it.head, self.m, n),
             mem_count=it.mem_count, gamma=it.gamma, s_pending=it.s_pending,
             y_pending=it.y_pending, pending_valid=it.pending_valid,
         )
@@ -218,7 +224,7 @@ class Lbfgs(SolverBase):
         ls_dir, alpha_init, dginit, _, _, count, _ = lbfgs_prologue_t(
             state.x, state.gradient, it.s_memory_t, it.y_memory_t,
             it.mem_count, it.gamma, it.s_pending, it.y_pending,
-            it.pending_valid, done,
+            it.pending_valid, done, it.head,
         )
         return self._search_and_epilogue(
             objective, state, internals, progress, stopping, done, ls_dir,

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Time ``flat_trip`` and ``lbfgs_prologue`` under every lane mapping on one GPU.
+"""Time the redesigned kernels under every lane mapping or launch plan on
+one GPU.
 
     python3 lane_sweep.py                      # from the repository root
     python3 lane_sweep.py --baseline DIR       # also time DIR's package
 
-For each shape the two kernels run at in ``chip_smoke.py`` it forces each
-lane mapping (``ops/_kernel.py::_pick``: lanes per block, threads per lane,
-where the history rows are read) and records the kernel's device time per
-launch with ``torch.profiler`` (float32, m = 10):
+For each shape the kernels run at in ``chip_smoke.py`` it forces each lane
+mapping (``ops/_kernel.py::_pick``: lanes per block, threads per lane, where
+the history rows are read) or launch plan (``ops/fused_step_t.py``) and
+records the kernel's device time per launch with ``torch.profiler``
+(float32, m = 10):
 
 * ``flat_trip``: 30 trips of a solve with the shipped mapping, then 40
   trips from a copy of that state under each mapping; one trip of each is
   also held against the plain version (largest scaled error of the
   direction, and whether the int scalars are equal);
-* ``lbfgs_prologue``: a traced solve cut at 40 iterations per mapping.
+* ``lbfgs_prologue``: a traced solve cut at 40 iterations per mapping;
+* ``lbfgs_prologue_t``: a traced solve of the batch-minor loop cut at 40
+  iterations per launch plan (lane tile, threads, cluster) that gives at
+  least 128 blocks;
+* ``mt_trip``: a traced solve cut at 40 iterations per mapping, batch-major
+  at (1024, 1024) and (256, 4096), batch-minor at (1024, 32) and (512,
+  2048).
 
 ``--baseline DIR`` times the package of another checkout (for example the
 parent commit unpacked with ``git archive``) at its own mappings in a
@@ -33,6 +41,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAT_SHAPES = [(1024, 32), (8192, 32), (1024, 1024), (256, 4096)]
 PROLOGUE_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048),
                    (256, 4096)]
+T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
+MT_SHAPES = [(1024, 1024, False), (256, 4096, False), (1024, 32, True),
+             (512, 2048, True)]
 M = 10
 
 
@@ -52,6 +63,20 @@ def variants(K, n, op):
             if K.lane_smem_bytes(M, n, 4, rows, 1, False) <= K.SMEM_LIMIT:
                 out.append((1, tpl, rows))
     return out
+
+
+def t_variants(ft, b, n):
+    """``None`` (the shipped plan) and every plan of at least 128 blocks."""
+    return [None] + [p for p in ft.launch_candidates(b, M, n, 4)
+                     if p["blocks"] >= 128]
+
+
+def mt_variants(n):
+    """``None`` and the forced ``mt_trip`` mappings at width ``n``."""
+    if n <= 64:
+        return [None] + [(lpb, 32) for lpb in (1, 2, 4, 8)]
+    return [None] + [(1, tpl) for tpl in (64, 128, 256, 512)
+                     if tpl * 2 <= n <= tpl * 32]
 
 
 def device_us(prof, key):
@@ -76,7 +101,8 @@ def measure(root, forced):
         from cppnumericalsolvers_tpu_torch.ops import _kernel as K
         shipped = K._pick
 
-    def force(v):
+    def force(v, only=None):
+        """Force mapping ``v`` on op ``only``; the other ops keep theirs."""
         if K is None:
             return
         if v is None:
@@ -85,6 +111,8 @@ def measure(root, forced):
         lpb, tpl, rows = v
 
         def pick(op, b, n, m, w):
+            if op != only:
+                return shipped(op, b, n, m, w)
             return lpb, tpl, rows, K.lane_smem_bytes(m, n, w, rows, lpb,
                                                      tpl == 32)
         K._pick = pick
@@ -105,7 +133,7 @@ def measure(root, forced):
             f, g = obj.batched_value_and_grad(xt)
             fs.flat_trip(st, f, g, xt, stop, 20)
         for v in (variants(K, n, "flat_trip") if K else [None]):
-            force(v)
+            force(v, "flat_trip")
             s1, x1 = st.clone(), xt.clone()
             f, g = obj.batched_value_and_grad(x1)
             s2, x2 = s1.clone(), x1.clone()
@@ -128,7 +156,7 @@ def measure(root, forced):
     solver = cns.Lbfgs(m=M, max_linesearch_fev=20)
     for b, n in PROLOGUE_SHAPES:
         for v in (variants(K, n, "lbfgs_prologue") if K else [None]):
-            force(v)
+            force(v, "lbfgs_prologue")
             cns.minimize_batched(obj, start(b, n), solver,
                                  stop.replace(max_iterations=2), trace=1)
             torch.cuda.synchronize()
@@ -141,16 +169,69 @@ def measure(root, forced):
             out[key] = {"us": us, "launches": count}
             print("[sweep]", key, json.dumps(out[key]), flush=True)
     force(None)
+
+    def layout(minor):
+        cns.Lbfgs._TRANSPOSED_N_MAX = 1 << 30 if minor else 0
+        cns.Lbfgs._TRANSPOSED_B_MIN = 1
+
+    def nested(b, n, key, label):
+        """Device time per launch of ``key`` in a traced 40-iteration
+        solve."""
+        cns.minimize_batched(obj, start(b, n), solver,
+                             stop.replace(max_iterations=2), trace=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cns.minimize_batched(obj, start(b, n), solver,
+                                 stop.replace(max_iterations=40), trace=1)
+            torch.cuda.synchronize()
+        us, count = device_us(prof, key)
+        out[label] = {"us": us, "launches": count}
+        print("[sweep]", label, json.dumps(out[label]), flush=True)
+
+    shipped_n, shipped_b = cns.Lbfgs._TRANSPOSED_N_MAX, \
+        cns.Lbfgs._TRANSPOSED_B_MIN
+    from cppnumericalsolvers_tpu_torch.ops import fused_step_t as ft
+    shipped_plan = ft.prologue_t_launch_plan
+    layout(True)
+    for b, n in T_SHAPES:
+        for plan in (t_variants(ft, b, n) if forced else [None]):
+            ft.prologue_t_launch_plan = (
+                shipped_plan if plan is None
+                else (lambda *_a, _p=plan: _p))
+            tag = "shipped" if plan is None else (
+                f"tile {plan['lane_tile']} threads {plan['threads']} "
+                f"cluster {plan['cluster']}")
+            nested(b, n, "prologue_t_kernel",
+                   f"lbfgs_prologue_t {b}x{n} {tag}")
+    ft.prologue_t_launch_plan = shipped_plan
+    for b, n, minor in MT_SHAPES:
+        layout(minor)
+        for v in (mt_variants(n) if K else [None]):
+            if v is None or K is None:
+                force(None)
+            else:
+                def pick(op, b_, n_, m_, w_, _v=v):
+                    if op != "mt_trip":
+                        return shipped(op, b_, n_, m_, w_)
+                    return _v[0], _v[1], K.ROWS_DIRECT, 0
+                K._pick = pick
+            nested(b, n, "mt_trip_kernel",
+                   f"mt_trip {b}x{n} {'minor' if minor else 'major'} "
+                   f"{v or 'shipped'}")
+    force(None)
+    cns.Lbfgs._TRANSPOSED_N_MAX = shipped_n
+    cns.Lbfgs._TRANSPOSED_B_MIN = shipped_b
     return out
 
 
 def baseline_ptxas(root) -> dict:
-    """Registers and spills of the two kernels in checkout ``root``, built
-    with this checkout's nvcc flags."""
+    """Registers and spills of the redesigned kernels in checkout ``root``,
+    built with this checkout's nvcc flags."""
     from cppnumericalsolvers_tpu_torch.ops import _build
 
     out = {}
-    for name in ("flat_trip", "lbfgs_prologue"):
+    for name in ("flat_trip", "lbfgs_prologue", "lbfgs_prologue_t",
+                 "mt_trip"):
         src = os.path.join(os.path.abspath(root), "cppnumericalsolvers_tpu_torch",
                            "ops", "csrc", f"{name}.cu")
         proc = subprocess.run(

@@ -202,15 +202,24 @@ def test_from_jax_numpy_carries_batch_minor_internals():
 
 
 def test_launch_plan_and_argument_checks():
+    # The grid is sized by B x n: a tile of 8 lanes spread over a cluster
+    # of 4 two-warp blocks at n = 32 (the batch-major kernel's warp per
+    # lane, one element a thread) ...
     plan = ft.prologue_t_launch_plan(1024, 10, 32, 4)
-    assert plan == {"lane_tile": 8, "slices": 32, "q_in_smem": True,
-                    "smem_bytes": (5 * 32 + 20) * 8 * 4 + 11 * 8 * 4
-                    + 32 * 8 * 4}
-    assert ft.prologue_t_launch_plan(8192, 10, 32, 4)["lane_tile"] == 32
+    assert plan == {"lane_tile": 8, "threads_per_lane": 32,
+                    "warps_per_block": 2, "cluster": 4, "ept": 1,
+                    "threads": 64, "blocks": 512, "warps": 1024,
+                    "smem_bytes": (2 * 5 * 8 * (8 + 4) + 3 * 10 * 8) * 4}
+    # ... one block per tile where the batch alone fills the card ...
+    wide = ft.prologue_t_launch_plan(8192, 10, 32, 4)
+    assert (wide["cluster"], wide["warps_per_block"]) == (1, 8)
+    # ... and eight 256-thread blocks per tile at (512, 2048), whose
+    # batch-major kernel gives a lane 256 threads of 8 elements.
     big = ft.prologue_t_launch_plan(512, 10, 2048, 8)
-    assert big["lane_tile"] == 8 and not big["q_in_smem"]
-    assert ft.prologue_t_launch_plan(512, 10, 2048, 4)["q_in_smem"]
-    assert ft.prologue_t_launch_plan(4, 10, 3, 8)["slices"] == 3
+    assert (big["threads_per_lane"], big["warps_per_block"], big["cluster"],
+            big["ept"]) == (256, 8, 8, 8)
+    assert big["smem_bytes"] == (2 * 5 * 8 * (64 + 2) + 3 * 10 * 8) * 8
+    assert ft.prologue_t_launch_plan(4, 10, 3, 8)["threads_per_lane"] == 32
     args = [t(a) for a in random_case(8, 3, 4, np.float64)]
     x, g, s, y, count, gamma, sn, yn, valid, done = args
     st, yt = ft.history_rows_to_t(s), ft.history_rows_to_t(y)
