@@ -24,8 +24,8 @@ Lbfgs(m=10))``:
 Phases (each raises on failure, so the script then exits non-zero):
 
 1. build   compile the seven sources of ``ops/csrc/`` with nvcc for sm_90a,
-           all at once, load them, and print each kernel's registers and
-           spills (ptxas -v);
+           all at once, load them, and print each kernel's registers,
+           spills and stack frame (ptxas -v);
 2. card    print the card's name and power limit (nvidia-smi);
 3. parity  flat: ~50 trips of a plain-version solve; at every trip the
            identical state goes through the kernel and through the plain
@@ -40,7 +40,18 @@ Phases (each raises on failure, so the script then exits non-zero):
            also where n is not a multiple of four and where its lane tiles
            and slices of j are ragged, and its prologue on made-up inputs
            (chronological, and on a ring whose heads differ by lane) at
-           every launch plan the solves do not take;
+           every launch plan the solves do not take.  The fused push and
+           the epilogue on made-up inputs at every mapping they take (the
+           epilogue also under every mapping forced at each shape, all of
+           which must give the same bits).  Reach: flat and warm-started
+           nested solves cut at 10 and 30 iterations at (64, 16384), where
+           the history rows are read in place, float64 held to the exact
+           short-budget contract (iterates within 1e-12 at 10 iterations;
+           at 30 their distance is recorded beside the plain version's
+           against itself summed in another order).  Drift: at one shape
+           per kernel, each float32 kernel's and plain version's distance
+           to the plain version in float64 on the same inputs, side by
+           side;
 4. main    flat: ``minimize_batched`` in float32 on the pairwise extended
            Rosenbrock at the throughput-grid shapes, launch counts set to 0
            just before and read just after; the result is held against the
@@ -132,8 +143,31 @@ PATH_B_FACTOR = 100.0
 # last-bit difference in x flips the test: kernel and plain-version solves
 # agreed on 71% of lanes' statuses in float32 with mean nfev 0.004 apart.
 PATH_B_DTYPE = {(1024, 32): "float32", (1024, 256): "float64"}
-# Made-up inputs for the two-loop kernels, which need no Hessian.
+# Made-up inputs for the two-loop kernels, which need no Hessian.  The
+# fused push is also held where a warp holds two elements a thread with a
+# ragged last block (1000, 60) and where its rows are read in place
+# (64, 16384).
 PUSH_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (256, 4096)]
+PUSH_PARITY_SHAPES = PUSH_SHAPES + [(1000, 60), (64, 16384)]
+# The epilogue on made-up inputs where each of its mappings is taken: a
+# warp per lane (one and two elements a thread, a ragged last block), a
+# block per lane with 16-byte units and with single values (n % 4 != 0),
+# clusters of 2 and 4 blocks; every other mapping is forced at each shape
+# too, and all must give the same bits.
+EPILOGUE_SHAPES = [(1024, 32), (1000, 60), (1024, 102), (1024, 1024),
+                   (256, 4096), (100, 4096), (64, 16384)]
+# The card's reach in n: flat and warm-started nested solves, kernels
+# against plain versions, where the history rows are read in place (n >
+# 5,752 in float64, 11,563 in float32), cut at REACH_SHORT_CUT and at
+# REACH_CUT iterations.  In float64 status, nfev and iterations must be
+# equal at both; the iterates are held within 1e-12 at the short budget.
+# At 30 iterations the problem itself parts two correct float64 solves by
+# more than that (the plain version against itself with its dot products
+# summed in another order, which this phase also runs), so there the
+# kernel's distance is recorded beside that reordering's.
+REACH_SHAPE = (64, 16384)
+REACH_SHORT_CUT = 10
+REACH_CUT = 30
 TWO_LOOP_SHAPES = [(1024, 32), (1024, 1024), (256, 4096)]
 # One made-up call through both prologues, built to reach what no parity
 # solve reaches on the card: the invalid-descent history reset.
@@ -165,6 +199,13 @@ DIRECTION_RTOL = {"float64": 1e-9, "float32": 1e-4}
 F32_MISMATCH_SHARE = 1e-3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
+# Where each float32 kernel's drift from the exact answer is measured
+# (float64 plain version on the same inputs upcast): the flat trip's
+# direction, the prologues', the fused push's direction, the epilogue's
+# pending step.
+DRIFT_AT = {"flat_trip": (1024, 100), "lbfgs_prologue": (1024, 1024),
+            "lbfgs_epilogue": (1024, 1024), "lbfgs_prologue_t": (512, 2048),
+            "push_two_loop": (1024, 32)}
 
 
 def log(msg: str) -> None:
@@ -185,7 +226,7 @@ class Mods:
 
     def __init__(self):
         import cppnumericalsolvers_tpu_torch as cns
-        from cppnumericalsolvers_tpu_torch.ops import _build
+        from cppnumericalsolvers_tpu_torch.ops import _build, _kernel
         from cppnumericalsolvers_tpu_torch.ops import flat_solve as fs
         from cppnumericalsolvers_tpu_torch.ops import fused_linesearch as fl
         from cppnumericalsolvers_tpu_torch.ops import fused_step as fstep
@@ -194,6 +235,7 @@ class Mods:
         from cppnumericalsolvers_tpu_torch.solvers import lbfgs as lb
 
         self.cns, self.build, self.fs, self.fl = cns, _build, fs, fl
+        self.K = _kernel
         self.fstep, self.ft, self.tl, self.lb = fstep, ft, tl, lb
         #: Every kernel wrapper but ``flat_trip`` (each counts its launches)
         #: and its plain version, by the kernel's name.
@@ -296,10 +338,11 @@ def main() -> int:
         f"{record['build_s']:.2f} s")
     record["ptxas"] = {}
     for name in mods.build.KERNELS:
-        for fn, regs, stores, loads in mods.build.ptxas_report(name):
-            record["ptxas"][fn] = [regs, stores, loads]
+        for fn, regs, stores, loads, stack in mods.build.ptxas_report(name):
+            record["ptxas"][fn] = [regs, stores, loads, stack]
             log(f"[build] {name} {fn}: {regs} registers, {stores} bytes "
-                f"spill stores, {loads} bytes spill loads")
+                f"spill stores, {loads} bytes spill loads, {stack} bytes "
+                "stack frame")
 
     # 2. card ---------------------------------------------------------------
     card = card_line()
@@ -315,18 +358,29 @@ def main() -> int:
 
     # 3. parity, call by call -------------------------------------------------
     max_abs_err = {name: 0.0 for name in REPLACES}
+    drift = {}
+
+    def drifts(dname, b, n, *names):
+        """The Drift records of ``names`` measured at (b, n) in float32."""
+        if dname != "float32":
+            return {}
+        return {name: drift.setdefault(name, Drift(b, n))
+                for name in names if DRIFT_AT[name] == (b, n)}
+
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[1]
         for b, n in PARITY_SHAPES:
-            r = parity(fs, obj, start(b, n, dtype), cns, dname)
+            r = parity(fs, obj, start(b, n, dtype), cns, dname,
+                       drifts(dname, b, n, "flat_trip").get("flat_trip"))
             record[f"parity_{dname}_{b}x{n}"] = r
             check_parity("flat_trip", dname, b, n, r, max_abs_err)
             if r["launches"] < r["calls"]:
                 raise AssertionError("flat_trip kernel did not launch")
         for b, n in NESTED_PARITY_SHAPES:
             t0 = time.perf_counter()
-            nested, cover = nested_parity(mods, obj, start(b, n, dtype),
-                                          dname)
+            nested, cover = nested_parity(
+                mods, obj, start(b, n, dtype), dname,
+                drift=drifts(dname, b, n, "lbfgs_prologue", "lbfgs_epilogue"))
             cover["seconds"] = time.perf_counter() - t0
             record[f"nested_parity_{dname}_{b}x{n}"] = {**nested,
                                                         "cover": cover}
@@ -337,8 +391,9 @@ def main() -> int:
             check_cover(cover, b, n)
         for b, n in T_PARITY_SHAPES:
             t0 = time.perf_counter()
-            nested, cover = nested_parity(mods, obj, start(b, n, dtype),
-                                          dname, batch_minor=True)
+            nested, cover = nested_parity(
+                mods, obj, start(b, n, dtype), dname, batch_minor=True,
+                drift=drifts(dname, b, n, "lbfgs_prologue_t"))
             cover["seconds"] = time.perf_counter() - t0
             record[f"path_a_parity_{dname}_{b}x{n}"] = {**nested,
                                                         "cover": cover}
@@ -350,8 +405,9 @@ def main() -> int:
         made = [(shape, ("lbfgs_prologue", "lbfgs_prologue_t"))
                 for shape in RESET_SHAPES]
         made += [(shape, ("lbfgs_prologue_t",)) for shape in T_MADE_UP_SHAPES]
-        made += [(shape, ("push_two_loop",)) for shape in PUSH_SHAPES]
+        made += [(shape, ("push_two_loop",)) for shape in PUSH_PARITY_SHAPES]
         made += [(shape, ("two_loop",)) for shape in TWO_LOOP_SHAPES]
+        made += [(shape, ("lbfgs_epilogue",)) for shape in EPILOGUE_SHAPES]
         for (b, n), names in made:
             out = made_up_parity(mods, dname, b, n, names)
             record.setdefault(f"made_up_parity_{dname}_{b}x{n}", {}).update(
@@ -362,12 +418,18 @@ def main() -> int:
                     log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
                         f"inputs: {r['history_resets']} invalid-descent "
                         "history resets")
+                if "mappings" in r:
+                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
+                        f"inputs: bit-equal under {len(r['mappings'])} "
+                        f"mappings {r['mappings']}; bit-equal to the plain "
+                        f"version: {r['equals_plain']}")
         for b, n in PATH_B_SHAPES:
             t0 = time.perf_counter()
             r = path_b_parity(
                 mods, obj, start(b, n, dtype), dname,
                 path_b_stopping(mods, obj, n, dtype,
-                                PATH_B_CUT.get((b, n), 0)))
+                                PATH_B_CUT.get((b, n), 0)),
+                drifts(dname, b, n, "push_two_loop").get("push_two_loop"))
             r["cover"]["seconds"] = time.perf_counter() - t0
             record[f"path_b_parity_{dname}_{b}x{n}"] = r
             check_parity("push_two_loop", dname, b, n, r, max_abs_err)
@@ -390,6 +452,20 @@ def main() -> int:
         log(f"[parity] nested {dname} ({b}, {n}) edge lanes covered: "
             + json.dumps(cover))
         check_cover(cover, b, n, edge=True)
+        t0 = time.perf_counter()
+        r = reach_parity(mods, obj, start(*REACH_SHAPE, dtype), dname)
+        r["seconds"] = time.perf_counter() - t0
+        record[f"reach_parity_{dname}"] = r
+    record["drift"] = {name: d.result() for name, d in drift.items()}
+    for name, r in record["drift"].items():
+        log(f"[drift] {name} float32 {tuple(r['shape'])}: relative "
+            f"distance to the float64 answer over {r['lanes']} lane-calls "
+            f"({r['excluded_lane_calls']} left out): kernel median "
+            f"{r['kernel_median']:.3e} worst {r['kernel_worst']:.3e}; plain "
+            f"median {r['plain_median']:.3e} worst {r['plain_worst']:.3e}; "
+            "kernel farther by more than 2x: median "
+            f"{r['kernel_farther_2x_median']}, worst "
+            f"{r['kernel_farther_2x_worst']}")
 
     # 4. main path ------------------------------------------------------------
     solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
@@ -712,9 +788,59 @@ class Compare:
         }
 
 
-def parity(fs, obj, x0, cns, dname) -> dict:
+class Drift:
+    """How far a float32 kernel and its float32 plain version each land from
+    the exact answer: the plain version's output on the same inputs upcast
+    to float64.  Per lane-call, the largest difference over the vector
+    divided by the float64 answer's largest magnitude; only lane-calls
+    whose integer outputs agree across the three and whose values are
+    finite count (a lane that took another branch is not a rounding
+    distance)."""
+
+    def __init__(self, b, n):
+        self.shape = (b, n)
+        self.kernel, self.plain, self.left_out = [], [], 0
+
+    def add(self, kernel, plain, exact, keep) -> None:
+        import torch
+
+        b = exact.shape[0]
+        k, p, e = (t.reshape(b, -1).double() for t in (kernel, plain, exact))
+        keep = (keep & e.isfinite().all(1) & k.isfinite().all(1)
+                & p.isfinite().all(1))
+        scale = e.abs().amax(1).clamp_min(torch.finfo(torch.float64).tiny)
+        self.kernel.append(((k - e).abs().amax(1) / scale)[keep])
+        self.plain.append(((p - e).abs().amax(1) / scale)[keep])
+        self.left_out += int((~keep).sum())
+
+    def result(self) -> dict:
+        import torch
+
+        k, p = torch.cat(self.kernel), torch.cat(self.plain)
+        out = {"shape": list(self.shape), "lanes": int(k.numel()),
+               "excluded_lane_calls": self.left_out}
+        for side, d in (("kernel", k), ("plain", p)):
+            out[f"{side}_median"] = float(d.median()) if d.numel() else 0.0
+            out[f"{side}_worst"] = float(d.max()) if d.numel() else 0.0
+        for stat in ("median", "worst"):
+            out[f"kernel_farther_2x_{stat}"] = (
+                out[f"kernel_{stat}"] > 2 * out[f"plain_{stat}"])
+        return out
+
+
+def upcast(rec):
+    """A copy of a record (a dataclass of tensors) with its floating-point
+    fields in float64."""
+    return type(rec)(**{k: v.double() if v.is_floating_point() else v.clone()
+                        for k, v in vars(rec).items()})
+
+
+def parity(fs, obj, x0, cns, dname, drift=None) -> dict:
     """Feed the identical state to the kernel and the plain version at every
-    trip of a plain-version flat solve and compare every output."""
+    trip of a plain-version flat solve and compare every output.  With
+    ``drift`` (a :class:`Drift`) the trip also runs through the plain version
+    on the inputs upcast to float64, and the lanes at an iteration boundary
+    give the direction's distance to it."""
     import torch
 
     stop = cns.default_stopping(x0.dtype)
@@ -728,8 +854,17 @@ def parity(fs, obj, x0, cns, dname) -> dict:
         f_t, g_t = obj.batched_value_and_grad(x_trial)
         k_st, k_xt = st.clone(), x_trial.clone()
         fs.flat_trip(k_st, f_t, g_t, k_xt, stop, MAX_FEV)
+        if drift is not None:
+            d_st, d_xt = upcast(st), x_trial.double()
+            fs.flat_trip_reference(d_st, f_t.double(), g_t.double(), d_xt,
+                                   stop, MAX_FEV)
+            its0 = st.si[:, fs._I_NUMIT].clone()
         fs.flat_trip_reference(st, f_t, g_t, x_trial, stop, MAX_FEV)
         torch.cuda.synchronize()
+        if drift is not None:
+            drift.add(k_st.sdir, st.sdir, d_st.sdir,
+                      (st.si[:, fs._I_NUMIT] != its0)
+                      & (k_st.si == st.si).all(1) & (d_st.si == st.si).all(1))
         floats = {"x_trial": (k_xt, x_trial, True)}
         for name in ("x0", "g0", "sdir", "gacc", "s", "y"):
             floats[name] = (getattr(k_st, name), getattr(st, name), True)
@@ -743,13 +878,17 @@ def _clone_record(rec):
     return type(rec)(**{k: v.clone() for k, v in vars(rec).items()})
 
 
-def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
+def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False,
+                  drift=None):
     """During a plain-version solve of the iteration-granular path, run to
     its end under ``stop`` (the default criteria if None), every call's
     inputs go through the kernel and through the plain version, and every
     output is compared.  ``batch_minor`` takes the loop on the batch-minor
-    history (``lbfgs_prologue_t``).  Returns the figures of each of
-    the three kernels, and what the compared calls covered: lane-calls on
+    history (``lbfgs_prologue_t``).  ``drift`` maps a kernel's name to a
+    :class:`Drift`: the prologue's direction and the epilogue's pending
+    step are then also measured against the plain version in float64.
+    Returns the figures of each of the three kernels, and what the compared
+    calls covered: lane-calls on
     done lanes (each kernel's early return), pushes into a full history,
     history resets, non-finite search results, and the statuses on which
     lanes left CONTINUE."""
@@ -758,6 +897,7 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
     cns, fl, fstep = mods.cns, mods.fl, mods.fstep
     b, n = x0.shape
     kernels, plain, pname = mods.nested(batch_minor)
+    drift = drift or {}
     cmps = {name: Compare(RTOL[dname], {"ls_dir": DIRECTION_RTOL[dname]})
             for name in kernels}
     launches0 = {name: fn.launches for name, fn in kernels.items()}
@@ -779,10 +919,18 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
         head0 = [h.clone() for h in head]
         kd, ka, kg, *_ = kernels[pname](
             x, g, *k[:4], s_new, y_new, valid, done, *k[4:])
+        if pname in drift:
+            up = [t.double() if t.is_floating_point() else t.clone()
+                  for t in (x, g, s_mem, y_mem, count, gamma, s_new, y_new,
+                            valid, done, *head)]
+            exact = plain[pname](*up)
         out = plain[pname](
             x, g, s_mem, y_mem, count, gamma, s_new, y_new, valid, done,
             *head)
         torch.cuda.synchronize()
+        if pname in drift:
+            drift[pname].add(kd, out[0], exact[0],
+                             ~done & (k[2] == count) & (up[4] == count))
         ints = {"mem_count": (k[2], count)}
         if head:
             ints["head"] = (k[4], head[0])
@@ -826,10 +974,22 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
         count0 = count.clone()
         kernels["lbfgs_epilogue"](
             ks, x_ls, f_ls, g_ls, ls_nfev, kc, ksp, kyp, kpv, done, kp, crit)
+        if "lbfgs_epilogue" in drift:
+            es, ep = upcast(state), upcast(progress)
+            ec, esp, eyp, epv = (t.double() if t.is_floating_point()
+                                 else t.clone() for t in (count, s_pend,
+                                                          y_pend, pvalid))
+            fstep.lbfgs_epilogue_reference(
+                es, x_ls.double(), f_ls.double(), g_ls.double(), ls_nfev, ec,
+                esp, eyp, epv, done, ep, crit)
         out = fstep.lbfgs_epilogue_reference(
             state, x_ls, f_ls, g_ls, ls_nfev, count, s_pend, y_pend, pvalid,
             done, progress, crit)
         torch.cuda.synchronize()
+        if "lbfgs_epilogue" in drift:
+            drift["lbfgs_epilogue"].add(
+                ksp, s_pend, esp, ~done & (kp.status == progress.status)
+                & (ep.status == progress.status) & (ec == count))
         ints = {"nfev": (ks.nfev, state.nfev), "mem_count": (kc, count),
                 "pending_valid": (kpv, pvalid)}
         for name in ("num_iterations", "x_delta_violations",
@@ -869,6 +1029,117 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False):
     cover["trips"] = res.trips
     return {name: cmps[name].result(fn.launches - launches0[name])
             for name, fn in kernels.items()}, cover
+
+
+def reach_parity(mods, obj, x0, dname) -> dict:
+    """The card's reach in n: at a width where the history rows are read in
+    place, a flat solve and a nested solve warm-started from its end,
+    through the entry points with the kernels and through the plain
+    versions, cut at REACH_SHORT_CUT and at REACH_CUT iterations.  float64:
+    status, nfev and iterations equal at both budgets, iterates within
+    1e-12 at the short one; at the long one the largest iterate distance
+    is recorded beside that of the plain flat solve against itself with
+    its dot products summed in another order.  float32: the main path's
+    tolerances (statuses equal on 99% of lanes, mean nfev within 3)."""
+    import torch
+
+    cns, fs = mods.cns, mods.fs
+    b, n = x0.shape
+    solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
+    want = ("flat_trip", "lbfgs_prologue", "mt_trip", "lbfgs_epilogue")
+    row = {"shape": [b, n], "dtype": dname,
+           "mappings": {k: vars(mods.K.lane_mapping(
+               k, b, n, M, x0.element_size())) for k in want}}
+
+    def distance(u, v):
+        return float(((u - v).abs() / v.abs().clamp_min(1.0)).max())
+
+    for cut in (REACH_SHORT_CUT, REACH_CUT):
+        stop = cns.default_stopping(x0.dtype).replace(max_iterations=cut)
+        torch.cuda.synchronize()
+        for fn in mods.wrappers.values():
+            fn.launches = 0
+        fs.flat_trip.launches = 0
+        flat = cns.minimize_batched(obj, x0, solver, stop)
+        warm = cns.minimize_batched(obj, flat.state.x, solver, stop,
+                                    internals=flat.internals)
+        torch.cuda.synchronize()
+        launches = {"flat_trip": fs.flat_trip.launches,
+                    **{k: fn.launches for k, fn in mods.wrappers.items()
+                       if fn.launches}}
+        if any(launches.get(k, 0) <= 0 for k in want):
+            raise AssertionError(
+                f"reach ({b}, {n}) {dname}: launches {launches}")
+
+        def plain_flat():
+            return fs.flat_lbfgs_solve(obj, obj.evaluate(x0), stop, m=M,
+                                       max_fev=MAX_FEV,
+                                       trip=fs.flat_trip_reference)
+
+        p_flat = plain_flat()
+        with mods.swapped(mods.plain):
+            p_warm = cns.minimize_batched(obj, flat.state.x, solver, stop,
+                                          internals=flat.internals)
+        held = dname == "float64" and cut == REACH_SHORT_CUT
+        for label, k, p in (("flat", flat, p_flat), ("warm", warm, p_warm)):
+            pairs = {"status": (k.progress.status, p.progress.status),
+                     "nfev": (k.state.nfev, p.state.nfev),
+                     "num_iterations": (k.progress.num_iterations,
+                                        p.progress.num_iterations)}
+            same = {key: bool((u == v).all())
+                    for key, (u, v) in pairs.items()}
+            r = {"equal": same, "max_x_err": distance(k.state.x, p.state.x),
+                 "status_agreement": float(
+                     (k.progress.status == p.progress.status)
+                     .float().mean()),
+                 "mean_nfev_diff": abs(
+                     float(k.state.nfev.float().mean())
+                     - float(p.state.nfev.float().mean())),
+                 "iterations": int(k.progress.num_iterations.max()),
+                 "launches": launches}
+            if dname == "float64" and label == "flat" and not held:
+                with reordered_sums(mods):
+                    r["reordered_plain_max_x_err"] = distance(
+                        plain_flat().state.x, p.state.x)
+            row[f"{label}_{cut}"] = r
+            log(f"[parity] reach ({b}, {n}) {dname} {label} solve cut at "
+                f"{cut} iterations: equal {same}, largest x error "
+                f"{r['max_x_err']:.3e} (relative above 1)"
+                + (f", the plain solve against itself summed in another "
+                   f"order {r['reordered_plain_max_x_err']:.3e}"
+                   if "reordered_plain_max_x_err" in r else "")
+                + f", status agreement {r['status_agreement']:.4f}, mean "
+                f"nfev diff {r['mean_nfev_diff']:.3f}; launches {launches}")
+            if dname == "float64" and not all(same.values()):
+                raise AssertionError(f"reach parity ({b}, {n}): {row}")
+            if held and r["max_x_err"] > 1e-12:
+                raise AssertionError(f"reach parity ({b}, {n}): {row}")
+            if r["status_agreement"] < 0.99 or r["mean_nfev_diff"] >= 3.0:
+                raise AssertionError(f"reach parity ({b}, {n}): {row}")
+    return row
+
+
+@contextlib.contextmanager
+def reordered_sums(mods):
+    """The plain versions' dot products summed in another order: each of
+    512 strided partial sums first, then those (the kernels' order with 512
+    threads a lane) where n is a multiple of 512, else from the far end."""
+    import torch
+
+    def rdot(a, c):
+        p = a * c
+        n = p.shape[-1]
+        if n % 512 == 0:
+            return torch.sum(torch.sum(
+                p.reshape(*p.shape[:-1], n // 512, 512), -2), -1)
+        return torch.sum(p.flip(-1), -1)
+
+    old = mods.fs._rdot, mods.tl._rdot
+    mods.fs._rdot = mods.tl._rdot = rdot
+    try:
+        yield
+    finally:
+        mods.fs._rdot, mods.tl._rdot = old
 
 
 def mixed_tiles(head, done, tile=8) -> int:
@@ -1556,7 +1827,180 @@ def made_up_parity(mods, dname, b, n, names) -> dict:
             pd = mods.plain_all[name](*args)
             compare(name, {"mem_count": (a["count"], a["count"])},
                     {"direction": (kd, pd, True)})
+        elif name == "lbfgs_epilogue":
+            dtype = getattr(torch, dname)
+            stop = mods.cns.default_stopping(dtype)
+            equal = True
+            for crit in (stop.replace(max_iterations=10),
+                         stop.replace(**EDGE_STOPPING)):
+                r = epilogue_made_up(mods, b, n, dtype, crit)
+                compare(name, r["ints"], r["floats"])
+                equal = equal and r["equals_plain"]
+            out[name].update(mappings=r["mappings"], equals_plain=equal)
     return out
+
+
+def made_up_epilogue(cns, b, n, dtype, dev, seed=SEED) -> dict:
+    """Made-up inputs for the epilogue, from a seed: a search's result near
+    the iterate with zero steps (the stall reset and the x_delta rung), a
+    NaN in the search's point, non-finite values (the guard), unchanged
+    values (f_delta 0), done lanes, and progress records at every stage
+    (iteration counts about the limit, counters, plateau rings and their
+    positions).  ``lbfgs_epilogue``'s arguments, in order, but the
+    criteria; ``lane_sweep.py`` feeds the same inputs to another
+    checkout's kernel."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def t(v, dt=dtype):
+        return torch.from_numpy(np.ascontiguousarray(v)).to(device=dev,
+                                                            dtype=dt)
+
+    lanes = np.arange(b)
+    x = rng.standard_normal((b, n))
+    g = rng.standard_normal((b, n))
+    x_ls = x + 1e-2 * rng.standard_normal((b, n))
+    g_ls = g + 1e-1 * rng.standard_normal((b, n))
+    x_ls[lanes % 9 == 5] = x[lanes % 9 == 5]
+    x_ls[lanes % 17 == 3, n // 2] = np.nan
+    f0 = rng.uniform(0.0, 10.0, b)
+    f_ls = f0 - rng.uniform(0.0, 1e-3, b)
+    f_ls[lanes % 7 == 2] = f0[lanes % 7 == 2]
+    f_ls[lanes % 11 == 4] = np.inf
+    f_ls[lanes % 13 == 6] = np.nan
+    done = lanes % 4 == 1
+    status = np.where(done, rng.integers(1, 5, b), 0)
+    state = cns.FunctionState(x=t(x), value=t(f0), gradient=t(g),
+                              nfev=t(rng.integers(0, 500, b), torch.int32))
+    progress = cns.ProgressState(
+        num_iterations=t(rng.integers(0, 12, b), torch.int32),
+        x_delta=t(rng.uniform(0.0, 1.0, b)),
+        x_delta_violations=t(rng.integers(0, 2, b), torch.int32),
+        f_delta=t(rng.uniform(0.0, 1.0, b)),
+        f_delta_violations=t(rng.integers(0, 2, b), torch.int32),
+        gradient_norm=t(rng.uniform(0.0, 1.0, b)),
+        condition_hessian=t(rng.uniform(1.0, 1e3, b)),
+        status=t(status, torch.int32),
+        past_ring=t(f0[:, None] + rng.uniform(0.0, 1e-4, (b, 8))),
+        past_pos=t(rng.integers(0, 3, b), torch.int32))
+    return {
+        "state": state, "x_ls": t(x_ls), "f_ls": t(f_ls), "g_ls": t(g_ls),
+        "ls_nfev": t(rng.integers(0, 20, b), torch.int32),
+        "count": t(rng.integers(0, M + 1, b), torch.int32),
+        "s_pend": t(rng.standard_normal((b, n))),
+        "y_pend": t(rng.standard_normal((b, n))),
+        "pvalid": t(rng.random(b) < 0.5, torch.bool),
+        "done": t(done, torch.bool), "progress": progress,
+    }
+
+
+def epilogue_call(fn, a, crit):
+    """``fn`` (the epilogue's wrapper or plain version) on fresh copies of
+    the made-up inputs ``a``; returns every output tensor by name."""
+    state, progress = _clone_record(a["state"]), _clone_record(a["progress"])
+    count, s_pend, y_pend, pvalid = (a[k].clone() for k in (
+        "count", "s_pend", "y_pend", "pvalid"))
+    fn(state, a["x_ls"], a["f_ls"], a["g_ls"], a["ls_nfev"], count, s_pend,
+       y_pend, pvalid, a["done"], progress, crit)
+    return {**{f"state.{k}": v for k, v in vars(state).items()},
+            **{f"progress.{k}": v for k, v in vars(progress).items()},
+            "count": count, "s_pend": s_pend, "y_pend": y_pend,
+            "pvalid": pvalid}
+
+
+def bits(t):
+    """A tensor's bits: floats viewed as integers of their width, so that
+    NaNs compare by payload and -0 differs from +0."""
+    import torch
+
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    return t
+
+
+def epilogue_mappings(K, b, n, itemsize) -> list:
+    """``None`` (the shipped mapping) and the ones forced at (b, n):
+    ``(lanes per block, threads per lane, cluster)``."""
+    if n <= 64:
+        forced = [(1, 32, 1), (8, 32, 1), (1, 64, 1)]
+    else:
+        forced = []
+        for cl in (1, 2, 4):
+            for bt in (K.lane_threads(-(-n // cl)), 64, 512):
+                forced.append((1, cl * max(32, bt), cl))
+    shipped = K.lane_mapping("lbfgs_epilogue", b, n, M, itemsize)
+    ship = (shipped.lanes_per_block, shipped.threads_per_lane,
+            shipped.cluster)
+    return [None] + sorted({v for v in forced if v != ship})
+
+
+@contextlib.contextmanager
+def forced_mapping(K, op, v):
+    """``lane_mapping(op, ...)`` gives ``v`` = (lanes per block, threads per
+    lane, cluster), rows read in place; other ops keep theirs."""
+    shipped = K._pick
+    if v is None:
+        yield
+        return
+
+    def pick(op_, b, n, m, w):
+        if op_ != op:
+            return shipped(op_, b, n, m, w)
+        return v[0], v[1], K.ROWS_DIRECT, 0, v[2]
+
+    K._pick = pick
+    try:
+        yield
+    finally:
+        K._pick = shipped
+
+
+def epilogue_made_up(mods, b, n, dtype, crit) -> dict:
+    """The epilogue on made-up inputs under every mapping it can take at
+    (b, n): every mapping must give the same bits (only maxima are
+    reduced); the plain version's outputs are compared (``ints`` and
+    ``floats`` for :class:`Compare`) and its bit-equality recorded."""
+    import torch
+
+    a = made_up_epilogue(mods.cns, b, n, dtype, torch.device("cuda"))
+    plain = epilogue_call(mods.plain_all["lbfgs_epilogue"], a, crit)
+    runs, names = [], []
+    w = torch.finfo(dtype).bits // 8
+    for v in epilogue_mappings(mods.K, b, n, w):
+        with forced_mapping(mods.K, "lbfgs_epilogue", v):
+            runs.append(epilogue_call(mods.wrappers["lbfgs_epilogue"], a,
+                                      crit))
+        names.append(list(v) if v else "shipped")
+    torch.cuda.synchronize()
+    first = runs[0]
+    for v, r in zip(names, runs):
+        for key in first:
+            if not torch.equal(bits(r[key]), bits(first[key])):
+                raise AssertionError(
+                    f"lbfgs_epilogue ({b}, {n}) on made-up inputs: {key} "
+                    f"differs under mapping {v} from the shipped one")
+    frozen = a["done"]
+    for key, value in first.items():
+        old = (a[key] if key in a else getattr(
+            a["state"] if key.startswith("state.") else a["progress"],
+            key.split(".")[1]))
+        if not torch.equal(bits(value[frozen]), bits(old[frozen])):
+            raise AssertionError(
+                f"lbfgs_epilogue ({b}, {n}): a done lane's {key} changed")
+    ints, floats = {}, {}
+    for key, value in first.items():
+        if value.is_floating_point():
+            floats[key] = (value, plain[key], value.dim() == 2 and key
+                           != "progress.past_ring")
+        else:
+            ints[key] = (value, plain[key])
+    return {"ints": ints, "floats": floats, "mappings": names,
+            "equals_plain": all(torch.equal(bits(first[k]), bits(plain[k]))
+                                for k in first)}
 
 
 def path_b_stopping(mods, obj, n, dtype, cut=0):
@@ -1573,9 +2017,10 @@ def path_b_stopping(mods, obj, n, dtype, cut=0):
     return stop.replace(max_iterations=cut) if cut else stop
 
 
-def path_b_parity(mods, obj, x0, dname, stop) -> dict:
+def path_b_parity(mods, obj, x0, dname, stop, drift=None) -> dict:
     """``push_two_loop`` against its plain version at every call of a
-    plain-version path-B solve."""
+    plain-version path-B solve; with ``drift`` (a :class:`Drift`) also the
+    direction's distance to the plain version in float64."""
     import torch
 
     cns = mods.cns
@@ -1588,9 +2033,16 @@ def path_b_parity(mods, obj, x0, dname, stop) -> dict:
         k = [t.clone() for t in (s_mem, y_mem, count, gamma)]
         count0, newest0 = count.clone(), s_mem[:, -1].clone()
         kd, *_ = mods.wrappers["push_two_loop"](g, *k, s_new, y_new, valid)
+        if drift is not None:
+            up = [t.double() if t.is_floating_point() else t.clone()
+                  for t in (g, s_mem, y_mem, count, gamma, s_new, y_new,
+                            valid)]
+            exact = mods.plain_all["push_two_loop"](*up)
         out = mods.plain_all["push_two_loop"](
             g, s_mem, y_mem, count, gamma, s_new, y_new, valid)
         torch.cuda.synchronize()
+        if drift is not None:
+            drift.add(kd, out[0], exact[0], (k[2] == count) & (up[3] == count))
         cmp.add(b, {"mem_count": (k[2], count)}, {
             "direction": (kd, out[0], True), "s_memory": (k[0], s_mem, True),
             "y_memory": (k[1], y_mem, True), "gamma": (k[3], gamma, False)})

@@ -59,8 +59,9 @@ def run_line_search(
                                 trips=trips)
     if method in LINE_SEARCHES:
         raise NotImplementedError(
-            f"line_search={method!r} is not ported yet (ROADMAP.md queue A "
-            "item 12: linesearch/armijo.py, linesearch/hager_zhang.py)."
+            f"line_search={method!r} is not ported yet (ROADMAP.md queue A, "
+            "the line searches: linesearch/armijo.py, "
+            "linesearch/hager_zhang.py)."
         )
     raise ValueError(
         f"unknown line search {method!r}; expected one of {LINE_SEARCHES}"

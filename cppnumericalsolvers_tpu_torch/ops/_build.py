@@ -41,9 +41,9 @@ KERNELS = {
     "flat_trip": [_P] * 12 + [_I] * 7 + _CRIT + [_P],
     "mt_trip": [_P] * 8 + [_I] * 6 + [_P],
     "lbfgs_prologue": [_P] * 13 + [_I] * 6 + [_P],
-    "lbfgs_epilogue": [_P] * 22 + [_I] * 2 + _CRIT + [_P],
+    "lbfgs_epilogue": [_P] * 22 + [_I] * 5 + _CRIT + [_P],
     "lbfgs_prologue_t": [_P] * 14 + [_I] * 6 + [_P],
-    "push_two_loop": [_P] * 9 + [_I] * 3 + [_P],
+    "push_two_loop": [_P] * 9 + [_I] * 6 + [_P],
     "two_loop": [_P] * 6 + [_I] * 3 + [_P],
 }
 
@@ -85,20 +85,28 @@ def build(name: str) -> Path:
 
 
 def parse_ptxas(text: str) -> list:
-    """``[(kernel symbol, registers, spill stores, spill loads)]`` from
-    ptxas's ``-v`` output."""
-    out, fn = [], None
+    """``[(kernel symbol, registers, spill stores, spill loads, stack frame
+    bytes)]`` from ptxas's ``-v`` output.  A register array indexed at run
+    time goes to the stack frame (local memory) without a spill line, so
+    the frame is reported beside the spills."""
+    out, fn, props = [], None, None
     for line in text.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
-            fn, stores, loads = found.group(1), 0, 0
+            fn, stores, loads, stack = found.group(1), 0, 0, 0
+        found = re.search(r"Function properties for (\w+)", line)
+        if found:
+            props = found.group(1)
+        frame = re.search(r"(\d+) bytes stack frame", line)
+        if frame and fn and props == fn:
+            stack = int(frame.group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
-        if spill and fn:
+        if spill and fn and props == fn:
             stores, loads = int(spill.group(1)), int(spill.group(2))
         regs = re.search(r"Used (\d+) registers", line)
         if regs and fn:
-            out.append((fn, int(regs.group(1)), stores, loads))
+            out.append((fn, int(regs.group(1)), stores, loads, stack))
             fn = None
     return out
 

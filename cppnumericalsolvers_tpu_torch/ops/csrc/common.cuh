@@ -6,10 +6,10 @@
 // ladder.  Each kernel source includes this header and is compiled on its own
 // into one shared library with a plain C interface.
 //
-// Design of the kernels not redesigned for Hopper (lbfgs_epilogue.cu,
-// push_two_loop.cu, two_loop.cu; the others say how they differ, and
-// staged.cuh holds the lane groups of flat_trip.cu, lbfgs_prologue.cu and
-// mt_trip.cu).  One thread block per lane (grid = B);
+// Design of the kernel not redesigned for Hopper (two_loop.cu; the others
+// say how they differ, and staged.cuh holds the lane groups of flat_trip.cu,
+// lbfgs_prologue.cu, push_two_loop.cu, mt_trip.cu and lbfgs_epilogue.cu).
+// One thread block per lane (grid = B);
 // threads stride over n, so each thread owns the same elements j in every
 // vector and history row.  Reductions are warp shuffles plus shared memory,
 // combined across warps in a fixed order, so every thread of a block gets
@@ -86,9 +86,8 @@ template <typename K> inline int allow_smem(K kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// Block-wide sums / NaN-propagating maxima of K values.  Every thread gets
-// the same result: lanes by xor butterfly (commutative pairs), warps summed
-// in a fixed order.
+// Block-wide sums of K values.  Every thread gets the same result: lanes by
+// xor butterfly (commutative pairs), warps summed in a fixed order.
 template <typename T, int K>
 __device__ void block_sum(T (&v)[K], T *red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -106,28 +105,6 @@ __device__ void block_sum(T (&v)[K], T *red) {
   for (int k = 0; k < K; ++k) {
     T acc = red[k * MAX_WARPS];
     for (int w = 1; w < nw; ++w) acc += red[k * MAX_WARPS + w];
-    v[k] = acc;
-  }
-  __syncthreads();
-}
-
-template <typename T, int K>
-__device__ void block_max(T (&v)[K], T *red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[k] = nmax(v[k], __shfl_xor_sync(0xffffffffu, v[k], off));
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k * MAX_WARPS + warp] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T acc = red[k * MAX_WARPS];
-    for (int w = 1; w < nw; ++w) acc = nmax(acc, red[k * MAX_WARPS + w]);
     v[k] = acc;
   }
   __syncthreads();
@@ -346,23 +323,6 @@ __device__ Push<T> push_gate(bool valid, T sy, T s2, T y2, int count, int m,
       valid && y2 > eps && isfinite(temp) && fabs(temp) <= T(1e7);
   p.new_gamma = gamma_ok ? nmax(temp, eps) : gamma;
   return p;
-}
-
-// Append one element of the pair to the chronological history, in place.  A
-// thread owns index j of every row, so the shift needs no barrier.
-template <typename T>
-__device__ __forceinline__ void push_element(const Push<T> &p, T *hs, T *hy,
-                                             int m, int n, int j, T sv,
-                                             T yv) {
-  if (!p.accept) return;
-  if (p.full) {
-    for (int r = 0; r < m - 1; ++r) {
-      hs[(size_t)r * n + j] = hs[(size_t)(r + 1) * n + j];
-      hy[(size_t)r * n + j] = hy[(size_t)(r + 1) * n + j];
-    }
-  }
-  hs[(size_t)p.slot * n + j] = sv;
-  hy[(size_t)p.slot * n + j] = yv;
 }
 
 // Two-loop recursion over the rows in use (lbfgs.h:141-196).  On entry q (in

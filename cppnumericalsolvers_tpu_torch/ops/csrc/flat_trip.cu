@@ -13,7 +13,9 @@
 // the row modes).  The wrapper maps a lane to one warp (n <= 64, several
 // lanes per block, rows read in place with the next row's load ahead) or to
 // one block of 64 to 512 threads, each thread owning 8 elements of a row,
-// which streams the rows through shared memory.  Small blocks with little
+// which streams the rows through shared memory or, where the stream's row
+// buffers do not fit a block (n > 5,752 in float64 and 11,563 in float32 at
+// m = 10), reads them in place.  Small blocks with little
 // shared memory keep many lanes in flight, which the trip needs: most lanes
 // are mid-search and touch no history.  The history is a ring: row k in age
 // order is physical row (head + k) mod m, with head in si[I_HEAD]; an
@@ -307,7 +309,7 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) ||
       (mp.rows != ROWS_STREAM && mp.rows != ROWS_DIRECT) ||
       32 * mp.lpb > WARP_BLOCK_THREADS ||
-      (mp.rows == ROWS_DIRECT && a.n > DIRECT_ELEMENTS * mp.tpl))
+      (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS))
     return (int)cudaErrorInvalidValue;
   if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
   return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)

@@ -18,10 +18,13 @@
 // m = 10) they are copied there (cp.async) while the pending pair's sums
 // run; a full history's shift is then written from the staged rows, as
 // writes only, and the two-loop reads no device memory.  Otherwise the shift
-// loads four rows before storing them and the two-loop streams or reads the
-// rows.  A done lane touches none of
-// them and emits the zero direction with dginit = 0, on which the search
-// aborts before its first evaluation by its own non-descent rule.
+// loads four rows before storing them and the two-loop streams the rows or,
+// where the stream's row buffers do not fit a block (n > 5,752 in float64
+// and 11,563 in float32 at m = 10), reads them in place.  The push and the
+// two-loop are staged.cuh's push_two_loop_rows, which push_two_loop.cu runs
+// too.  A done lane touches none of the history and emits the zero
+// direction with dginit = 0, on which the search aborts before its first
+// evaluation by its own non-descent rule.
 //
 // What bounds it on an H100: device-memory bytes.  A live lane reads x, g and
 // the pending pair, reads the history rows in use once, writes the rows that
@@ -40,8 +43,6 @@ using namespace cppns;
 
 // Blocks per SM the warp-per-lane build is bounded for (launch bounds).
 constexpr int WARP_MIN_BLOCKS = 2;
-// Rows a full history's shift moves per batch of loads (not staged).
-constexpr int SHIFT_BATCH = 4;
 
 template <typename T> struct Args {
   const T *x, *g, *s_new, *y_new;
@@ -118,56 +119,7 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
   if (WARP) grp.sync();
 
   const Push<T> p = push_gate(valid, sm[0], sm[1], sm[2], count, m, gamma);
-  // On chip the history is a ring: after a full history's shift its oldest
-  // row (physical 0) holds the new pair and age k sits at (1 + k) mod m.
-  const int head = (p.accept && p.full && staged) ? 1 : 0;
-  if (staged) cp_wait<0>();
-  T *st_s = lm.rows + (size_t)p.slot * n;
-  T *st_y = lm.rows + (size_t)(m + p.slot) * n;
-  if (p.accept && p.full && staged) {
-    st_s = lm.rows;
-    st_y = lm.rows + (size_t)m * n;
-  }
-  for (int j = tid; j < n; j += nt) {
-    const T sv = s_new[j], yv = y_new[j];
-    if (p.accept) {
-      if (p.full && staged) {
-        for (int r = 0; r < m - 1; ++r) {
-          const size_t o = (size_t)r * n + j, o1 = o + n;
-          hs[o] = lm.rows[o1];
-          hy[o] = lm.rows[(size_t)m * n + o1];
-        }
-      } else if (p.full) {
-        // Rows r+1 .. r+SHIFT_BATCH are loaded before any is stored, so
-        // their loads are in flight together.
-        for (int r0 = 0; r0 < m - 1; r0 += SHIFT_BATCH) {
-          T bs[SHIFT_BATCH], by[SHIFT_BATCH];
-#pragma unroll
-          for (int c = 0; c < SHIFT_BATCH; ++c) {
-            const size_t o1 = (size_t)(r0 + c + 1) * n + j;
-            bs[c] = r0 + c < m - 1 ? hs[o1] : T(0);
-            by[c] = r0 + c < m - 1 ? hy[o1] : T(0);
-          }
-#pragma unroll
-          for (int c = 0; c < SHIFT_BATCH; ++c)
-            if (r0 + c < m - 1) {
-              hs[(size_t)(r0 + c) * n + j] = bs[c];
-              hy[(size_t)(r0 + c) * n + j] = by[c];
-            }
-        }
-      }
-      hs[(size_t)p.slot * n + j] = sv;
-      hy[(size_t)p.slot * n + j] = yv;
-      if (staged) {
-        st_s[j] = sv;
-        st_y[j] = yv;
-      }
-    }
-    lm.q[j] = g[j];
-  }
-
-  two_loop_rows(grp, lm, hs, hy, a.rows, p.new_count, head, m, n,
-                p.new_gamma);
+  push_two_loop_rows(grp, lm, p, hs, hy, s_new, y_new, g, a.rows, m, n);
 
   T dq[2] = {T(0), T(0)};  // g.q, q.q
   for (int j = tid; j < n; j += nt) {
@@ -205,7 +157,7 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) || mp.rows < 0 ||
       mp.rows > ROWS_DIRECT || 32 * mp.lpb > WARP_BLOCK_THREADS ||
-      (mp.rows == ROWS_DIRECT && a.n > DIRECT_ELEMENTS * mp.tpl))
+      (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS))
     return (int)cudaErrorInvalidValue;
   if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
   return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)

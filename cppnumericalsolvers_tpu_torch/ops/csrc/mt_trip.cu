@@ -47,8 +47,6 @@
 //
 // Numerics and build flags: see common.cuh (--fmad=false; ops/_build.py).
 
-#include <cstdint>
-
 #include "staged.cuh"
 
 namespace {
@@ -77,39 +75,6 @@ template <typename T> struct Args {
   int *si;
   int b, n, max_fev;
 };
-
-// VW neighbouring values, loaded or stored as one 16-byte access where
-// VW * sizeof(T) == 16.
-template <typename T, int VW> struct Unit {
-  T v[VW];
-};
-template <typename T, int VW>
-__device__ __forceinline__ Unit<T, VW> load_unit(const T *p) {
-  Unit<T, VW> u;
-  if constexpr (VW == 1) {
-    u.v[0] = *p;
-  } else if constexpr (sizeof(T) == 4) {
-    static_assert(VW == 4, "float units are 1 or 4 values");
-    const float4 t = *reinterpret_cast<const float4 *>(p);
-    u.v[0] = t.x; u.v[1] = t.y; u.v[2] = t.z; u.v[3] = t.w;
-  } else {
-    static_assert(VW == 2, "double units are 1 or 2 values");
-    const double2 t = *reinterpret_cast<const double2 *>(p);
-    u.v[0] = t.x; u.v[1] = t.y;
-  }
-  return u;
-}
-template <typename T, int VW>
-__device__ __forceinline__ void store_unit(T *p, const Unit<T, VW> &u) {
-  if constexpr (VW == 1) {
-    *p = u.v[0];
-  } else if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4 *>(p) = make_float4(u.v[0], u.v[1], u.v[2],
-                                                 u.v[3]);
-  } else {
-    *reinterpret_cast<double2 *>(p) = make_double2(u.v[0], u.v[1]);
-  }
-}
 
 template <typename T, bool WARP, bool WIDE, int VW>
 __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
@@ -238,10 +203,6 @@ int launch_as(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   const int threads = WARP ? 32 * mp.lpb : mp.tpl;
   mt_trip_kernel<T, WARP, WIDE, VW><<<blocks, threads, 0, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-inline bool aligned16(const void *p) {
-  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 template <typename T>

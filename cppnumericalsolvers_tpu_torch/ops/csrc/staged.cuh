@@ -1,9 +1,10 @@
 // Device code of the kernels redesigned for Hopper with a lane per warp or
-// block (flat_trip.cu, lbfgs_prologue.cu and, without the history rows,
-// mt_trip.cu): a lane group (one warp or one whole block per lane), its
-// reductions, the history rows on chip, and the two-loop recursion over
-// them.  lbfgs_prologue_t.cu and the kernels not redesigned compile from
-// common.cuh alone.
+// block (flat_trip.cu, lbfgs_prologue.cu, push_two_loop.cu and, without the
+// history rows, mt_trip.cu and lbfgs_epilogue.cu): a lane group (one warp
+// or one whole block per lane), its reductions, the history rows on chip,
+// the history push and the two-loop recursion over them, and 16-byte loads
+// and stores.  lbfgs_prologue_t.cu and two_loop.cu compile from common.cuh
+// alone.
 //
 // Lanes to threads.  The wrapper picks the mapping
 // (ops/_kernel.py::lane_mapping) and passes it in: at small n a lane is one
@@ -19,9 +20,14 @@
 // before the first reduction, and both passes of the two-loop read shared
 // memory only.  STREAM: the two-loop streams the rows from device memory
 // through two shared-memory row buffers, the next row's copy in flight while
-// the current row is reduced.  DIRECT (a warp per lane, n <= 64, where a row
-// is one or two cache lines): each thread loads its elements of the next row
-// into registers before the current row's reduction.  A row is addressed by
+// the current row is reduced.  DIRECT: the rows are read from device memory
+// in place.  With a warp per lane (n <= 64, where a row is one or two cache
+// lines) each thread loads its elements of the next row into registers
+// before the current row's reduction.  With a block per lane the two-loop's
+// loops read them as they read the streamed rows; it is the mode that
+// reaches n = 28,760 in float64 and 57,816 in float32 at m = 10 (q, the
+// per-row scalars and the reduction scratch are its only shared memory),
+// taken where the stream's row buffers do not fit.  A row is addressed by
 // its age k (0 the oldest) at physical row (head + k) mod m.
 //
 // Every thread of a group computes the scalar logic from identical inputs and
@@ -30,6 +36,8 @@
 // barrier.
 
 #pragma once
+
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -103,7 +111,8 @@ template <typename T, bool WARP> struct Group {
 // (STAGED), streamed from device memory through two row buffers in shared
 // memory (STREAM), or read from device memory in place (DIRECT).
 constexpr int ROWS_STREAM = 0, ROWS_STAGED = 1, ROWS_DIRECT = 2;
-// Elements of a row one thread holds in ROWS_DIRECT (n <= 2 * threads).
+// Elements of a row one thread of a warp per lane holds in ROWS_DIRECT
+// (n <= 64).
 constexpr int DIRECT_ELEMENTS = 2;
 
 // Shared memory of one lane, in T values: alpha, rho, s.y and the usable
@@ -171,7 +180,9 @@ __device__ void stage_rows(const T *hs, const T *hy, T *stage, int count,
 // their copies have landed; ROWS_STREAM, they are streamed from ``hs``/``hy``
 // through the two buffers at ``lm.rows``, the next row's copy in flight while
 // the current row is reduced; ROWS_DIRECT, they are read from ``hs``/``hy``
-// into registers, the next row ahead of the current row's reduction.
+// in place (a warp per lane loads the next row into registers ahead of the
+// current row's reduction).  Every mode adds a thread's products in order
+// of j.
 template <typename T, bool WARP>
 __device__ void two_loop_rows(Group<T, WARP> &g, const LaneMem<T> &lm,
                               const T *hs, const T *hy, int rows, int count,
@@ -179,7 +190,9 @@ __device__ void two_loop_rows(Group<T, WARP> &g, const LaneMem<T> &lm,
   const T eps = Eps<T>::v;
   const int tid = g.tid, nt = g.nt;
   const bool staged = rows == ROWS_STAGED, stream = rows == ROWS_STREAM;
-  const bool direct = rows == ROWS_DIRECT;
+  // A block per lane reads ROWS_DIRECT rows in the loops below the warp's
+  // register path (row_s/row_y point into device memory).
+  const bool direct = WARP && rows == ROWS_DIRECT;
   T *q = lm.q;
   auto phys = [&](int k) {
     const int p = head + k;
@@ -228,9 +241,10 @@ __device__ void two_loop_rows(Group<T, WARP> &g, const LaneMem<T> &lm,
     issue(count - 1, 0);
   }
 
-  // ROWS_DIRECT (n <= 2 * threads): each thread holds its elements of the
-  // current row in registers and loads the next row's before the current
-  // reduction, so a row's load latency overlaps the previous row's work.
+  // ROWS_DIRECT with a warp per lane (n <= 2 * threads): each thread holds
+  // its elements of the current row in registers and loads the next row's
+  // before the current reduction, so a row's load latency overlaps the
+  // previous row's work.
   T cs[DIRECT_ELEMENTS], cy[DIRECT_ELEMENTS];
   auto load = [&](int k, T (&ds)[DIRECT_ELEMENTS], T (&dy)[DIRECT_ELEMENTS]) {
     const size_t o = (size_t)phys(k) * n;
@@ -356,6 +370,110 @@ __device__ void two_loop_rows(Group<T, WARP> &g, const LaneMem<T> &lm,
     const T coef = lm.alphas[k] - beta;
     for (int j = tid; j < n; j += nt) q[j] = q[j] + s_r[j] * coef;
   }
+}
+
+// Rows a full history's shift moves per batch of loads (not staged).
+constexpr int SHIFT_BATCH = 4;
+
+// The curvature-gated push of the pair (s_new, y_new) into the
+// chronological history (Push p from push_gate), then the two-loop
+// recursion on the updated history: on return lm.q holds H * g.  A full
+// history's shift is written from the staged rows where they are on chip
+// (ROWS_STAGED, the copies of stage_rows issued by the caller before its
+// reductions: it is then writes only, and on chip the rows become a ring
+// whose oldest row, physical 0, holds the new pair); otherwise each thread
+// loads SHIFT_BATCH rows of its elements before storing them.  A pair that
+// is not accepted writes nothing.
+template <typename T, bool WARP>
+__device__ void push_two_loop_rows(Group<T, WARP> &grp, const LaneMem<T> &lm,
+                                   const Push<T> &p, T *hs, T *hy,
+                                   const T *s_new, const T *y_new, const T *g,
+                                   int rows, int m, int n) {
+  const int tid = grp.tid, nt = grp.nt;
+  const bool staged = rows == ROWS_STAGED;
+  const int head = (p.accept && p.full && staged) ? 1 : 0;
+  if (staged) cp_wait<0>();
+  T *st_s = lm.rows + (size_t)p.slot * n;
+  T *st_y = lm.rows + (size_t)(m + p.slot) * n;
+  if (p.accept && p.full && staged) {
+    st_s = lm.rows;
+    st_y = lm.rows + (size_t)m * n;
+  }
+  for (int j = tid; j < n; j += nt) {
+    const T sv = s_new[j], yv = y_new[j];
+    if (p.accept) {
+      if (p.full && staged) {
+        for (int r = 0; r < m - 1; ++r) {
+          const size_t o = (size_t)r * n + j, o1 = o + n;
+          hs[o] = lm.rows[o1];
+          hy[o] = lm.rows[(size_t)m * n + o1];
+        }
+      } else if (p.full) {
+        // Rows r+1 .. r+SHIFT_BATCH are loaded before any is stored, so
+        // their loads are in flight together.
+        for (int r0 = 0; r0 < m - 1; r0 += SHIFT_BATCH) {
+          T bs[SHIFT_BATCH], by[SHIFT_BATCH];
+#pragma unroll
+          for (int c = 0; c < SHIFT_BATCH; ++c) {
+            const size_t o1 = (size_t)(r0 + c + 1) * n + j;
+            bs[c] = r0 + c < m - 1 ? hs[o1] : T(0);
+            by[c] = r0 + c < m - 1 ? hy[o1] : T(0);
+          }
+#pragma unroll
+          for (int c = 0; c < SHIFT_BATCH; ++c)
+            if (r0 + c < m - 1) {
+              hs[(size_t)(r0 + c) * n + j] = bs[c];
+              hy[(size_t)(r0 + c) * n + j] = by[c];
+            }
+        }
+      }
+      hs[(size_t)p.slot * n + j] = sv;
+      hy[(size_t)p.slot * n + j] = yv;
+      if (staged) {
+        st_s[j] = sv;
+        st_y[j] = yv;
+      }
+    }
+    lm.q[j] = g[j];
+  }
+  two_loop_rows(grp, lm, hs, hy, rows, p.new_count, head, m, n, p.new_gamma);
+}
+
+// VW neighbouring values, loaded or stored as one 16-byte access where
+// VW * sizeof(T) == 16.
+template <typename T, int VW> struct Unit {
+  T v[VW];
+};
+template <typename T, int VW>
+__device__ __forceinline__ Unit<T, VW> load_unit(const T *p) {
+  Unit<T, VW> u;
+  if constexpr (VW == 1) {
+    u.v[0] = *p;
+  } else if constexpr (sizeof(T) == 4) {
+    static_assert(VW == 4, "float units are 1 or 4 values");
+    const float4 t = *reinterpret_cast<const float4 *>(p);
+    u.v[0] = t.x; u.v[1] = t.y; u.v[2] = t.z; u.v[3] = t.w;
+  } else {
+    static_assert(VW == 2, "double units are 1 or 2 values");
+    const double2 t = *reinterpret_cast<const double2 *>(p);
+    u.v[0] = t.x; u.v[1] = t.y;
+  }
+  return u;
+}
+template <typename T, int VW>
+__device__ __forceinline__ void store_unit(T *p, const Unit<T, VW> &u) {
+  if constexpr (VW == 1) {
+    *p = u.v[0];
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4 *>(p) = make_float4(u.v[0], u.v[1], u.v[2],
+                                                 u.v[3]);
+  } else {
+    *reinterpret_cast<double2 *>(p) = make_double2(u.v[0], u.v[1]);
+  }
+}
+
+inline bool aligned16(const void *p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 // Launch geometry from the wrapper's mapping: ``tpl`` threads per lane

@@ -207,8 +207,9 @@ def lbfgs_epilogue(
     pvalid, mem_count, progress)``, the objects given.
 
     CPU tensors run :func:`lbfgs_epilogue_reference`; CUDA tensors launch
-    the kernel of ``csrc/lbfgs_epilogue.cu`` on the current stream, or
-    raise.  ``lbfgs_epilogue.launches`` counts kernel launches."""
+    the kernel of ``csrc/lbfgs_epilogue.cu`` on the current stream with
+    the lanes mapped by :func:`~._kernel.lane_mapping`, or raise.
+    ``lbfgs_epilogue.launches`` counts kernel launches."""
     b, n = state.x.shape
     dtype = state.x.dtype
     i32 = torch.int32
@@ -239,6 +240,7 @@ def lbfgs_epilogue(
             state, x_ls, f_ls, g_ls, ls_nfev, mem_count, s_pend, y_pend,
             pvalid, done, progress, crit,
         )
+    mapping = lane_mapping("lbfgs_epilogue", b, n, 0, state.x.element_size())
     launch(
         "lbfgs_epilogue", dev, dtype,
         (state.x, state.value, state.gradient, state.nfev, x_ls, f_ls, g_ls,
@@ -246,7 +248,8 @@ def lbfgs_epilogue(
          pr.num_iterations, pr.x_delta, pr.x_delta_violations, pr.f_delta,
          pr.f_delta_violations, pr.gradient_norm, pr.status, pr.past_ring,
          pr.past_pos),
-        (b, n, *crit_scalars(crit)),
+        (b, n, mapping.lanes_per_block, mapping.threads_per_lane,
+         mapping.cluster, *crit_scalars(crit)),
     )
     lbfgs_epilogue.launches += 1
     return state, s_pend, y_pend, pvalid, mem_count, progress

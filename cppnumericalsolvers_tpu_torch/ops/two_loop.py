@@ -32,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from ._kernel import check_args, check_float, check_smem, launch
+from ._kernel import (check_args, check_float, check_smem, lane_mapping,
+                      launch)
 
 __all__ = [
     "lbfgs_push_and_direction",
@@ -189,9 +190,9 @@ def lbfgs_push_and_direction(
     un-batched instance is taken too.
 
     CPU tensors run :func:`lbfgs_push_and_direction_reference`; CUDA tensors
-    launch the kernel of ``csrc/push_two_loop.cu`` on the current stream,
-    or raise.  ``lbfgs_push_and_direction.launches`` counts kernel
-    launches."""
+    launch the kernel of ``csrc/push_two_loop.cu`` on the current stream
+    with the lanes mapped by :func:`~._kernel.lane_mapping`, or raise.
+    ``lbfgs_push_and_direction.launches`` counts kernel launches."""
     if gradient.dim() == 1:
         d, *_ = lbfgs_push_and_direction(*_batch_of_one(
             (gradient, s_memory, y_memory, mem_count, gamma, s_new, y_new,
@@ -214,11 +215,11 @@ def lbfgs_push_and_direction(
         return lbfgs_push_and_direction_reference(
             gradient, s_memory, y_memory, mem_count, gamma, s_new, y_new,
             valid)
-    check_smem(op, m, n, gradient.element_size())
+    mapping = lane_mapping("push_two_loop", b, n, m, gradient.element_size())
     d = torch.empty_like(gradient)
     launch("push_two_loop", dev, dtype,
            (gradient, s_new, y_new, valid, s_memory, y_memory, mem_count,
-            gamma, d), (b, n, m))
+            gamma, d), (b, n, m, *mapping.scalars()))
     lbfgs_push_and_direction.launches += 1
     return d, s_memory, y_memory, mem_count, gamma
 

@@ -101,11 +101,11 @@ class Lbfgs(SolverBase):
     """Limited-memory BFGS (default history m=10, lbfgs.h:40)."""
 
     m: int = 10
-    max_linesearch_fev: int = DEFAULT_MAX_FEV
-    line_search: str = "more_thuente"
     #: Use the Hessian-diagonal preconditioner (needs a second-mode
     #: objective); lbfgs.h:97-139.
     use_hessian_preconditioner: bool = False
+    max_linesearch_fev: int = DEFAULT_MAX_FEV
+    line_search: str = "more_thuente"
 
     #: Largest n, and least batch, that the iteration-granular loop runs on
     #: the batch-minor history.  0 routes nothing there: on an NVIDIA H100
@@ -121,8 +121,8 @@ class Lbfgs(SolverBase):
         if self.line_search != "more_thuente":
             raise NotImplementedError(
                 f"line_search={self.line_search!r} is not ported yet "
-                "(ROADMAP.md queue A item 12: linesearch/armijo.py, "
-                "linesearch/hager_zhang.py)."
+                "(ROADMAP.md queue A, the line searches: "
+                "linesearch/armijo.py, linesearch/hager_zhang.py)."
             )
 
     def supports_fused_update(self, objective) -> bool:

@@ -21,17 +21,28 @@ records the kernel's device time per launch with ``torch.profiler``
   least 128 blocks;
 * ``mt_trip``: a traced solve cut at 40 iterations per mapping, batch-major
   at (1024, 1024) and (256, 4096), batch-minor at (1024, 32) and (512,
-  2048).
+  2048);
+* ``push_two_loop``: 20 calls on made-up inputs (``chip_smoke.made_up``,
+  fresh copies each call) per mapping, at the shapes ``chip_smoke.py`` runs
+  it (float32, and float64 at path B's (1024, 256));
+* ``lbfgs_epilogue``: a traced solve cut at 40 iterations per mapping
+  (lanes per block, threads per lane, cluster), and on made-up inputs
+  (``chip_smoke.made_up_epilogue``) a digest of every output's bits per
+  mapping, which must equal the baseline kernel's.
 
 ``--baseline DIR`` times the package of another checkout (for example the
 parent commit unpacked with ``git archive``) at its own mappings in a
-subprocess, for a comparison within one call.  The record goes to
+subprocess, for a comparison within one call, and holds the epilogue's
+bits against its kernel's.  The record goes to
 ``chiprun_out/lane_sweep.json``; each line is printed as it is measured.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -44,23 +55,41 @@ PROLOGUE_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048),
 T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
 MT_SHAPES = [(1024, 1024, False), (256, 4096, False), (1024, 32, True),
              (512, 2048, True)]
+PUSH_SHAPES = [(1024, 32, 4), (1024, 256, 4), (1024, 1024, 4),
+               (256, 4096, 4), (1024, 256, 8)]
+EPILOGUE_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048),
+                   (256, 4096), (64, 16384)]
 M = 10
 
 
-def variants(K, n, op):
+def smoke():
+    """``chip_smoke.py`` of this checkout (its made-up inputs and the
+    epilogue's mappings), whatever package is imported."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def variants(K, n, op, itemsize=4):
     """``None`` (the shipped mapping) and the forced ones at width ``n``;
     ``flat_trip`` takes no staged rows."""
     S, T, D = K.ROWS_STREAM, K.ROWS_STAGED, K.ROWS_DIRECT
-    modes = (S,) if op == "flat_trip" else (T, S)
+    modes = (S, D) if op == "flat_trip" else (T, S, D)
     if n <= 64:
+        warp = (D,) + modes[:-2]
+        if op == "push_two_loop":
+            warp += (K.ROWS_REGISTERS,)
         return [None] + [(lpb, 32, rows) for lpb in (1, 2, 4, 8)
-                         for rows in (D,) + modes[:-1]]
+                         for rows in warp]
     out = [None]
     for tpl in (64, 128, 256, 512):
         if tpl * 16 < n or tpl > n:
             continue
         for rows in modes:
-            if K.lane_smem_bytes(M, n, 4, rows, 1, False) <= K.SMEM_LIMIT:
+            if K.lane_smem_bytes(M, n, itemsize, rows, 1,
+                                 False) <= K.SMEM_LIMIT:
                 out.append((1, tpl, rows))
     return out
 
@@ -114,7 +143,7 @@ def measure(root, forced):
             if op != only:
                 return shipped(op, b, n, m, w)
             return lpb, tpl, rows, K.lane_smem_bytes(m, n, w, rows, lpb,
-                                                     tpl == 32)
+                                                     tpl == 32), 1
         K._pick = pick
 
     dev = torch.device("cuda")
@@ -176,9 +205,15 @@ def measure(root, forced):
 
     def nested(b, n, key, label):
         """Device time per launch of ``key`` in a traced 40-iteration
-        solve."""
-        cns.minimize_batched(obj, start(b, n), solver,
-                             stop.replace(max_iterations=2), trace=1)
+        solve; a package whose kernels cannot take (b, n) (a checkout from
+        before the rows could be read in place) records the refusal."""
+        try:
+            cns.minimize_batched(obj, start(b, n), solver,
+                                 stop.replace(max_iterations=2), trace=1)
+        except ValueError as err:
+            out[label] = {"error": str(err)}
+            print("[sweep]", label, json.dumps(out[label]), flush=True)
+            return
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             cns.minimize_batched(obj, start(b, n), solver,
@@ -213,12 +248,67 @@ def measure(root, forced):
                 def pick(op, b_, n_, m_, w_, _v=v):
                     if op != "mt_trip":
                         return shipped(op, b_, n_, m_, w_)
-                    return _v[0], _v[1], K.ROWS_DIRECT, 0
+                    return _v[0], _v[1], K.ROWS_DIRECT, 0, 1
                 K._pick = pick
             nested(b, n, "mt_trip_kernel",
                    f"mt_trip {b}x{n} {'minor' if minor else 'major'} "
                    f"{v or 'shipped'}")
     force(None)
+    layout(False)
+    cs = smoke()
+    from cppnumericalsolvers_tpu_torch.ops import two_loop as tl
+
+    for b, n, w in PUSH_SHAPES:
+        dtype = torch.float32 if w == 4 else torch.float64
+        a = cs.made_up(b, n, dtype, dev)
+        keys = ("g", "s", "y", "count", "gamma", "s_new", "y_new", "valid")
+        for v in (variants(K, n, "push_two_loop", w) if K else [None]):
+            force(v, "push_two_loop")
+            calls = [[a[k].clone() for k in keys] for _ in range(21)]
+            tl.lbfgs_push_and_direction(*calls[0])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for args in calls[1:]:
+                    tl.lbfgs_push_and_direction(*args)
+                torch.cuda.synchronize()
+            # push_two_loop_kernel, or the register-held rows'
+            # push_two_loop_regs_kernel.
+            us, count = device_us(prof, "push_two_loop")
+            dname = "float32" if w == 4 else "float64"
+            key = f"push_two_loop {b}x{n} {dname} {v or 'shipped'}"
+            out[key] = {"us": us, "launches": count}
+            print("[sweep]", key, json.dumps(out[key]), flush=True)
+    force(None)
+
+    def force_epilogue(v):
+        if K is None:
+            return contextlib.nullcontext()
+        return cs.forced_mapping(K, "lbfgs_epilogue", v)
+
+    for b, n in EPILOGUE_SHAPES:
+        for v in (cs.epilogue_mappings(K, b, n, 4) if K else [None]):
+            with force_epilogue(v):
+                nested(b, n, "epilogue_kernel",
+                       f"lbfgs_epilogue {b}x{n} {list(v) if v else 'shipped'}")
+    from cppnumericalsolvers_tpu_torch.ops import fused_step as fstep
+
+    bits = {}
+    for b, n in cs.EPILOGUE_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            a = cs.made_up_epilogue(cns, b, n, dtype, dev)
+            crit = cns.default_stopping(dtype).replace(max_iterations=10)
+            w = dtype.itemsize
+            for v in (cs.epilogue_mappings(K, b, n, w) if K else [None]):
+                with force_epilogue(v):
+                    r = cs.epilogue_call(fstep.lbfgs_epilogue, a, crit)
+                torch.cuda.synchronize()
+                h = hashlib.sha256()
+                for k in sorted(r):
+                    h.update(r[k].cpu().numpy().tobytes())
+                bits[f"{b}x{n} {dname} {list(v) if v else 'shipped'}"] = (
+                    h.hexdigest())
+    out["epilogue_bits"] = bits
     cns.Lbfgs._TRANSPOSED_N_MAX = shipped_n
     cns.Lbfgs._TRANSPOSED_B_MIN = shipped_b
     return out
@@ -231,17 +321,18 @@ def baseline_ptxas(root) -> dict:
 
     out = {}
     for name in ("flat_trip", "lbfgs_prologue", "lbfgs_prologue_t",
-                 "mt_trip"):
+                 "mt_trip", "push_two_loop", "lbfgs_epilogue"):
         src = os.path.join(os.path.abspath(root), "cppnumericalsolvers_tpu_torch",
                            "ops", "csrc", f"{name}.cu")
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", os.devnull, src],
             capture_output=True, text=True)
-        for fn, regs, stores, loads in _build.parse_ptxas(
+        for fn, regs, stores, loads, stack in _build.parse_ptxas(
                 proc.stdout + proc.stderr):
-            out[fn] = [regs, stores, loads]
+            out[fn] = [regs, stores, loads, stack]
             print(f"[baseline ptxas] {name} {fn}: {regs} registers, "
-                  f"{stores}/{loads} bytes spilled", flush=True)
+                  f"{stores}/{loads} bytes spilled, {stack} bytes stack "
+                  "frame", flush=True)
     return out
 
 
@@ -276,8 +367,22 @@ def main() -> int:
             return 1
         record["baseline"] = json.loads(lines[-1][len("RESULT "):])
         record["baseline_ptxas"] = baseline_ptxas(args.baseline)
+        theirs = record["baseline"].pop("epilogue_bits")
         for key, val in record["baseline"].items():
             print("[baseline]", key, json.dumps(val), flush=True)
+        # Every mapping of the epilogue gives the baseline kernel's bits.
+        mine = record["sweep"]["epilogue_bits"]
+        equal = {key: digest == theirs[" ".join(key.split(" ")[:2])
+                                       + " shipped"]
+                 for key, digest in mine.items()}
+        record["epilogue_bits_equal_to_baseline"] = equal
+        print("[baseline] lbfgs_epilogue made-up outputs bit-equal to the "
+              f"baseline kernel under {sum(equal.values())} of {len(equal)} "
+              "(shape, dtype, mapping)", flush=True)
+        if not all(equal.values()):
+            print("[baseline] differing: "
+                  + json.dumps([k for k, v in equal.items() if not v]),
+                  flush=True)
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "lane_sweep.json"), "w") as f:
         json.dump(record, f, indent=1)

@@ -103,6 +103,31 @@ def test_objective_arithmetic_matches_jax():
     assert int(state.nfev) == 3 and state.gradient.shape == (3,)
 
 
+@pytest.mark.parametrize("name", ["min_zero", "max_zero"])
+def test_min_and_max_zero_split_the_gradient_at_the_kink(name):
+    # f(x) = 0 at x = (0.5, 0.5): jnp.minimum/jnp.maximum give half of f's
+    # gradient there, and so must the port.
+    x = np.array([0.5, 0.5])
+    j = getattr(jcns, name)(jcns.objective(lambda v: jnp.sum(v) - 1.0,
+                                           mode="first"))
+    t = getattr(cns, name)(cns.objective(lambda v: torch.sum(v) - 1.0))
+    jv, jgrad = j.value_and_grad(jnp.asarray(x))
+    tv, tgrad = t.value_and_grad(torch.from_numpy(x))
+    assert float(tv) == float(jv) == 0.0
+    np.testing.assert_array_equal(np.asarray(jgrad), [0.5, 0.5])
+    np.testing.assert_array_equal(tgrad.numpy(), np.asarray(jgrad))
+
+
+@pytest.mark.parametrize("args", [
+    (), (10,), (10, True), (5, False, 7), (3, True, 11, "more_thuente"),
+])
+def test_lbfgs_positional_fields_match_jax(args):
+    mine, theirs = cns.Lbfgs(*args), JaxLbfgs(*args)
+    for field in ("m", "use_hessian_preconditioner", "max_linesearch_fev",
+                  "line_search"):
+        assert getattr(mine, field) == getattr(theirs, field), field
+
+
 def test_import_loads_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys, cppnumericalsolvers_tpu_torch\n"

@@ -11,9 +11,12 @@ redesigned kernels.
   short-budget solve.
 * The mapping helper (``ops/_kernel.py::lane_mapping``): every shape the
   card runs, ragged ones too, in both dtypes, gets a mapping whose shared
-  memory fits a Hopper block; a shape that fits nothing raises.
+  memory fits a Hopper block, for each of the five kernels that take one;
+  the history kernels reach n = 28,760 in float64 and 57,816 in float32 at
+  m = 10 (rows read in place) and raise beyond.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -172,20 +175,134 @@ def test_lane_mapping_raises_where_nothing_fits():
     assert fs.flat_trip_smem_bytes(10, 40000, 8) > fs._SMEM_LIMIT
 
 
+@pytest.mark.parametrize("op", ["push_two_loop", "lbfgs_epilogue"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b,n", SHAPES)
+def test_push_and_epilogue_mappings_fit_a_block(b, n, itemsize, op):
+    mp = _kernel.lane_mapping(op, b, n, 10, itemsize)
+    assert mp.smem_bytes <= _kernel.SMEM_LIMIT
+    assert mp.lanes_per_block * mp.blocks >= b * mp.cluster
+    assert mp.scalars() == (mp.lanes_per_block, mp.threads_per_lane,
+                            mp.rows)
+    if n <= 64:
+        assert (mp.threads_per_lane, mp.cluster) == (32, 1)
+        assert 1 <= mp.lanes_per_block <= 8
+        assert (mp.blocks - 1) * mp.lanes_per_block < b
+        return
+    assert mp.lanes_per_block == 1 and mp.blocks == b * mp.cluster
+    assert mp.cluster in (1, 2, 4)
+    block = mp.threads_per_lane // mp.cluster
+    assert block * mp.cluster == mp.threads_per_lane
+    assert block % 32 == 0 and 64 <= block <= 512
+    if op == "push_two_loop":
+        assert mp.cluster == 1
+        assert mp.smem_bytes == _kernel.lane_smem_bytes(
+            10, n, itemsize, mp.rows, 1, False)
+    else:
+        # No history: only the reduction scratch, and a cluster only while
+        # the grid has fewer than two blocks per SM.
+        assert mp.rows == _kernel.ROWS_DIRECT
+        assert mp.cluster == 1 or b * mp.cluster // 2 < 132
+
+
+def test_push_and_epilogue_choices_at_the_main_shapes():
+    def pick(op, b, n, itemsize=4):
+        mp = _kernel.lane_mapping(op, b, n, 10, itemsize)
+        return (mp.lanes_per_block, mp.threads_per_lane, mp.rows, mp.blocks,
+                mp.cluster)
+
+    S, T, D = _kernel.ROWS_STREAM, _kernel.ROWS_STAGED, _kernel.ROWS_DIRECT
+    R = _kernel.ROWS_REGISTERS
+    # push_two_loop takes the prologue's mapping, but that a warp holds the
+    # rows in registers where m <= 10: path B's shapes and the made-up calls
+    # of chip_smoke.py.
+    for b, n in SHAPES:
+        for itemsize in (4, 8):
+            mine = _kernel.lane_mapping("push_two_loop", b, n, 10, itemsize)
+            theirs = _kernel.lane_mapping("lbfgs_prologue", b, n, 10,
+                                          itemsize)
+            if n <= 64:
+                assert mine.rows == R
+                mine = dataclasses.replace(mine, rows=theirs.rows)
+            elif mine.rows != theirs.rows:
+                # Staged rows where eight lanes fit an SM, not four.
+                assert (mine.rows, theirs.rows) == (S, T)
+                mine = dataclasses.replace(
+                    mine, rows=T, smem_bytes=theirs.smem_bytes)
+            assert mine == theirs
+    assert pick("push_two_loop", 1024, 32) == (3, 32, R, 342, 1)
+    assert _kernel.lane_mapping("push_two_loop", 1024, 32, 11, 4).rows == D
+    assert pick("push_two_loop", 1024, 256) == (1, 64, T, 1024, 1)
+    assert pick("push_two_loop", 1024, 256, 8) == (1, 64, S, 1024, 1)
+    assert pick("push_two_loop", 1024, 1024) == (1, 128, S, 1024, 1)
+    assert pick("push_two_loop", 256, 4096) == (1, 512, S, 256, 1)
+    # lbfgs_epilogue: a warp per lane, a block per lane, and clusters of 2
+    # and 4 where B is below one block per SM.
+    assert pick("lbfgs_epilogue", 1024, 32) == (3, 32, D, 342, 1)
+    assert pick("lbfgs_epilogue", 1024, 100) == (1, 64, D, 1024, 1)
+    assert pick("lbfgs_epilogue", 1024, 1024) == (1, 128, D, 1024, 1)
+    assert pick("lbfgs_epilogue", 512, 2048) == (1, 256, D, 512, 1)
+    assert pick("lbfgs_epilogue", 256, 4096) == (1, 512, D, 256, 1)
+    assert pick("lbfgs_epilogue", 100, 4096) == (1, 512, D, 200, 2)
+    assert pick("lbfgs_epilogue", 64, 16384) == (1, 2048, D, 256, 4)
+    # Too narrow to split: a slice would hold fewer than 512 elements.
+    assert pick("lbfgs_epilogue", 256, 1000) == (1, 128, D, 256, 1)
+
+
+@pytest.mark.parametrize("op", ["flat_trip", "lbfgs_prologue",
+                                "push_two_loop"])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b,n", [(64, 16384), (64, 8192)])
+def test_lane_mapping_reaches_large_n(b, n, itemsize, op):
+    # Where the stream's row buffers do not fit a block (n > 5,752 in
+    # float64, n > 11,563 in float32 at m = 10) the rows are read in place.
+    mp = _kernel.lane_mapping(op, b, n, 10, itemsize)
+    stream = _kernel.lane_smem_bytes(10, n, itemsize, _kernel.ROWS_STREAM,
+                                     1, False)
+    assert mp.smem_bytes <= _kernel.SMEM_LIMIT
+    assert (mp.rows == _kernel.ROWS_DIRECT) == (stream > _kernel.SMEM_LIMIT)
+    assert (mp.lanes_per_block, mp.threads_per_lane, mp.blocks) == (
+        1, 512, b)
+
+
+@pytest.mark.parametrize("op", ["flat_trip", "lbfgs_prologue",
+                                "push_two_loop"])
+@pytest.mark.parametrize("itemsize,reach", [(8, 28760), (4, 57816)])
+def test_lane_mapping_reach_in_n_at_m_10(op, itemsize, reach):
+    mp = _kernel.lane_mapping(op, 4, reach, 10, itemsize)
+    assert mp.rows == _kernel.ROWS_DIRECT
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernel.lane_mapping(op, 4, reach + 1, 10, itemsize)
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernel.lane_mapping(op, 4, 40000 * 8 // itemsize, 10, itemsize)
+
+
 def test_build_declares_the_new_entry_points_and_reads_ptxas():
-    """The two redesigned entry points take three more ints (the mapping)
-    after ``b, n, m``; the build keeps ptxas's register and spill report."""
+    """The redesigned entry points take three more ints (the mapping) after
+    ``b, n, m`` (the epilogue after ``b, n``); the build keeps ptxas's
+    register, spill and stack-frame report."""
     assert callable(_build.build_all) and callable(_build.load)
     ints = _build.KERNELS["flat_trip"].count(_build._I)
     assert ints == 7 + 6  # b, n, m, max_fev, mapping; the criteria's ints
     assert _build.KERNELS["lbfgs_prologue"].count(_build._I) == 6
+    assert _build.KERNELS["push_two_loop"].count(_build._I) == 6
+    assert _build.KERNELS["lbfgs_epilogue"].count(_build._I) == 5 + 6
     assert "-v" in _build.NVCC_FLAGS
     text = (
         "ptxas info    : Compiling entry function '_Z1kv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1kv\n"
         "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill "
         "loads\n"
         "ptxas info    : Used 64 registers, used 1 barriers\n"
         "ptxas info    : Compiling entry function '_Z1jv' for 'sm_90a'\n"
-        "ptxas info    : Used 40 registers\n")
-    assert _build.parse_ptxas(text) == [("_Z1kv", 64, 8, 12),
-                                        ("_Z1jv", 40, 0, 0)]
+        "ptxas info    : Used 40 registers\n"
+        "ptxas info    : Compiling entry function '_Z1iv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z1iv\n"
+        "    256 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n")
+    # The stack frame is the fifth figure: a register array indexed at run
+    # time lands there with no spill reported.
+    assert _build.parse_ptxas(text) == [("_Z1kv", 64, 8, 12, 0),
+                                        ("_Z1jv", 40, 0, 0, 0),
+                                        ("_Z1iv", 96, 0, 0, 256)]
