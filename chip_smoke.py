@@ -169,6 +169,24 @@ REACH_SHAPE = (64, 16384)
 REACH_SHORT_CUT = 10
 REACH_CUT = 30
 TWO_LOOP_SHAPES = [(1024, 32), (1024, 1024), (256, 4096)]
+# The bare two-loop is also held where a warp holds two elements a thread
+# with a ragged last block (1000, 60), where a block streams its rows
+# through the ring at a ragged n (1024, 100) and where it reads them in
+# place (64, 16384); at
+# every shape each other row mode is forced too, and every one must give
+# the shipped mapping's bits, as must push_two_loop with valid off.
+TWO_LOOP_PARITY_SHAPES = TWO_LOOP_SHAPES + [(1000, 60), (1024, 100),
+                                            (64, 16384)]
+# The bare two-loop's float outputs also element by element: the tolerance
+# of tests/test_torch_two_loop.py against JAX's kernel in float32.
+TWO_LOOP_ELEMENT_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
+                        "float64": dict(rtol=1e-9, atol=0.0)}
+# The MGH-376 suite (suite_bench.py's single solve): share of a pass's
+# lanes whose status must equal the plain version's on the card (PERF.md
+# §2), and the share of the 376 instances the single solve must converge
+# (bench.py:46, the reference's own figure).
+SUITE_STATUS_AGREEMENT = {"float64": 1.0, "float32": 0.99}
+SUITE_CONVERGED_MIN = 0.95
 # One made-up call through both prologues, built to reach what no parity
 # solve reaches on the card: the invalid-descent history reset.
 RESET_SHAPES = [(1024, 32), (1000, 32), (1024, 1024)]
@@ -406,7 +424,7 @@ def main() -> int:
                 for shape in RESET_SHAPES]
         made += [(shape, ("lbfgs_prologue_t",)) for shape in T_MADE_UP_SHAPES]
         made += [(shape, ("push_two_loop",)) for shape in PUSH_PARITY_SHAPES]
-        made += [(shape, ("two_loop",)) for shape in TWO_LOOP_SHAPES]
+        made += [(shape, ("two_loop",)) for shape in TWO_LOOP_PARITY_SHAPES]
         made += [(shape, ("lbfgs_epilogue",)) for shape in EPILOGUE_SHAPES]
         for (b, n), names in made:
             out = made_up_parity(mods, dname, b, n, names)
@@ -423,6 +441,11 @@ def main() -> int:
                         f"inputs: bit-equal under {len(r['mappings'])} "
                         f"mappings {r['mappings']}; bit-equal to the plain "
                         f"version: {r['equals_plain']}")
+                if "row_modes" in r:
+                    log(f"[parity] two_loop {dname} ({b}, {n}) on made-up "
+                        f"inputs: shipped mapping {r['mapping']}, bit-equal "
+                        f"under the row modes {r['row_modes']} and to "
+                        "push_two_loop with valid off")
         for b, n in PATH_B_SHAPES:
             t0 = time.perf_counter()
             r = path_b_parity(
@@ -578,6 +601,10 @@ def main() -> int:
     for name, count in record["path_c"]["launches"].items():
         main_launches[name] += count
 
+    record["suite"] = suite_main(mods)
+    for name, count in record["suite"]["launches"].items():
+        main_launches[name] += count
+
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
         b, n = row["shape"]
@@ -585,10 +612,10 @@ def main() -> int:
         log(f"[time] ({b}, {n}) float32: kernel {row['ms']:.4f} ms/trip, "
             f"plain {row['plain_ms']:.4f} ms/trip, bound "
             f"{row['bound_ms']:.4f} ms/trip ({row['bound_by']}), solve "
-            f"{row['solve_s']:.3f} s kernel vs {row['plain_solve_s']:.3f} s "
-            f"plain, {row['lane_iterations_per_s_timed']:.4g} "
+            f"{row['solve_s']:.3f} s, {row['lane_iterations_per_s_timed']:.4g} "
             f"lane-iterations/s; per trip: evaluation {row['eval_ms']:.4f} "
-            f"ms on the card, host clock {row['wall_ms_per_trip']:.4f} ms; "
+            f"ms on the card, host clock {row['wall_ms_per_trip']:.4f} ms "
+            f"(plain {row['plain_wall_ms_per_trip']:.4f} ms); "
             f"starved timed calls {row['starved_calls']} of "
             f"{row['padded_calls']}")
         log("[shape] " + json.dumps(row))
@@ -1555,7 +1582,11 @@ def path_compare(cns, obj, x0, solver, stop) -> dict:
 def timing(fs, obj, x0, stop) -> dict:
     """Per-trip time of the kernel and of the plain version, each solve run
     in the order plain, kernel, kernel, plain, and the least time each
-    trip's data needs on this card.
+    trip's data needs on this card.  The kernel's solves run to their end;
+    the plain version's are cut at NESTED_TIMED_ITERATIONS iterations (its
+    trip takes about 20 ms of host time and, spin-padded, 50 ms of the
+    card's: whole plain solves cost the script about 110 s at the four
+    shapes).
 
     Two kinds of solve.  Host-clock solves time whole trips as a user sees
     them.  Device solves give the card's own time (spin-padded, see
@@ -1568,9 +1599,11 @@ def timing(fs, obj, x0, stop) -> dict:
         plain = trip is fs.flat_trip_reference
         pad = (PLAIN_PAD if plain else KERNEL_PAD) if device_time else 0
         trip, tobj = Timed(trip, pad), TimedObjective(obj, pad and KERNEL_PAD)
+        cut = (stop.replace(max_iterations=NESTED_TIMED_ITERATIONS) if plain
+               else stop)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = fs.flat_lbfgs_solve(tobj, state0, stop, m=M, max_fev=MAX_FEV,
+        res = fs.flat_lbfgs_solve(tobj, state0, cut, m=M, max_fev=MAX_FEV,
                                   trip=trip)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -1611,7 +1644,7 @@ def timing(fs, obj, x0, stop) -> dict:
         "kernel_span_ms": mean("kernel", False, "trip_ms"),
         "eval_span_ms": mean("kernel", False, "eval_ms"),
         "solve_s": mean("kernel", False, "wall"),
-        "plain_solve_s": mean("plain", False, "wall"),
+        "plain_timed_iterations": NESTED_TIMED_ITERATIONS,
         "lane_iterations_per_s_timed": (
             mean("kernel", False, "lane_iterations")
             / mean("kernel", False, "wall")),
@@ -1827,6 +1860,13 @@ def made_up_parity(mods, dname, b, n, names) -> dict:
             pd = mods.plain_all[name](*args)
             compare(name, {"mem_count": (a["count"], a["count"])},
                     {"direction": (kd, pd, True)})
+            fin = pd.isfinite()
+            if not (torch.equal(fin, kd.isfinite()) and torch.allclose(
+                    kd[fin], pd[fin], **TWO_LOOP_ELEMENT_TOL[dname])):
+                raise AssertionError(
+                    f"two_loop {dname} ({b}, {n}): outside rtol/atol "
+                    f"{TWO_LOOP_ELEMENT_TOL[dname]} of the plain version")
+            out[name].update(two_loop_bits(mods, a, kd, b, n))
         elif name == "lbfgs_epilogue":
             dtype = getattr(torch, dname)
             stop = mods.cns.default_stopping(dtype)
@@ -1838,6 +1878,66 @@ def made_up_parity(mods, dname, b, n, names) -> dict:
                 equal = equal and r["equals_plain"]
             out[name].update(mappings=r["mappings"], equals_plain=equal)
     return out
+
+
+@contextlib.contextmanager
+def forced_rows(K, op, rows):
+    """``lane_mapping(op, ...)`` keeps its lane groups but reads the rows by
+    ``rows`` (a ``ROWS_*`` mode); other ops keep theirs."""
+    shipped = K._pick
+
+    def pick(op_, b, n, m, w):
+        lpb, tpl, shipped_rows, smem, cl = shipped(op_, b, n, m, w)
+        if op_ != op:
+            return lpb, tpl, shipped_rows, smem, cl
+        return lpb, tpl, rows, K.lane_smem_bytes(m, n, w, rows, lpb,
+                                                 tpl == 32), cl
+
+    K._pick = pick
+    try:
+        yield
+    finally:
+        K._pick = shipped
+
+
+def two_loop_bits(mods, a, kd, b, n) -> dict:
+    """The bare two-loop's direction ``kd`` (shipped mapping) against the
+    same call under every other row mode that fits a block with the same
+    lane groups, and against ``push_two_loop`` with ``valid`` off on the
+    same history: each must give the same bits (the same threads add the
+    same products in the same order; the rows are only read elsewhere)."""
+    import torch
+
+    K = mods.K
+    w = a["g"].element_size()
+    args = (a["g"], a["s"], a["y"], a["count"], a["gamma"])
+    shipped = K.lane_mapping("two_loop", b, n, M, w)
+    warp = shipped.threads_per_lane == 32
+    modes = [K.ROWS_STAGED, K.ROWS_STREAM, K.ROWS_DIRECT]
+    modes.append(K.ROWS_REGISTERS if warp else K.ROWS_RING)
+    tried = [shipped.rows]
+    for rows in modes:
+        if rows == shipped.rows or K.lane_smem_bytes(
+                M, n, w, rows, shipped.lanes_per_block, warp) > K.SMEM_LIMIT:
+            continue
+        with forced_rows(K, "two_loop", rows):
+            other = mods.wrappers["two_loop"](*args)
+        torch.cuda.synchronize()
+        if not torch.equal(bits(other), bits(kd)):
+            raise AssertionError(
+                f"two_loop ({b}, {n}) {kd.dtype}: rows mode {rows} differs "
+                f"from the shipped mode {shipped.rows}")
+        tried.append(rows)
+    hist = [t.clone() for t in (a["s"], a["y"], a["count"], a["gamma"])]
+    pd, *_ = mods.wrappers["push_two_loop"](
+        a["g"], *hist, a["s_new"], a["y_new"], torch.zeros_like(a["valid"]))
+    torch.cuda.synchronize()
+    if not torch.equal(bits(pd), bits(kd)):
+        raise AssertionError(
+            f"two_loop ({b}, {n}) {kd.dtype}: differs from push_two_loop "
+            "with valid off")
+    return {"row_modes": tried, "mapping": vars(shipped),
+            "equals_push_two_loop": True}
 
 
 def made_up_epilogue(cns, b, n, dtype, dev, seed=SEED) -> dict:
@@ -2178,6 +2278,100 @@ def path_c_main(mods) -> dict:
         f"un-batched call, launches {launches}, worst error against the "
         f"float64 plain version {worst:.3e}")
     return {"launches": launches, "max_scaled_err_vs_float64": worst}
+
+
+def suite_main(mods) -> dict:
+    """The MGH-376 suite through ``suite_bench.single_solve`` (every
+    instance a fresh ``minimize_batched`` in float32, the problems with a
+    failed instance again in float64), launch counts set to 0 just before
+    and read just after: only ``flat_trip`` may launch, once per trip.  Then
+    each pass's problems through the plain version on the card: the
+    kernel's statuses must equal the plain version's on every float64 lane
+    and on at least 99% of the float32 lanes, and the single solve must
+    converge on at least SUITE_CONVERGED_MIN of the 376."""
+    import torch
+
+    import suite_bench
+    from cppnumericalsolvers_tpu_torch.models import (
+        mgh_benchmark_instances, success_mask)
+
+    cns, fs = mods.cns, mods.fs
+    torch.cuda.synchronize()
+    fs.flat_trip.launches = 0
+    for fn in mods.wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run = suite_bench.single_solve("cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flat_trip": fs.flat_trip.launches,
+                **{name: fn.launches for name, fn in mods.wrappers.items()
+                   if fn.launches}}
+    trips = sum(r["trips"] for r in run["float32"]) + sum(
+        r["trips"] for r in run["float64"].values())
+    if launches != {"flat_trip": trips} or trips == 0:
+        raise AssertionError(f"suite: launches {launches} for {trips} trips")
+    records = run["records"]
+    total = sum(r["ok"].size for r in records)
+    converged = sum(int(r["ok"].sum()) for r in records)
+    row = {"wall_s": wall, "f32_pass_s": run["f32_wall_s"],
+           "f64_pass_s": run["f64_wall_s"], "launches": launches,
+           "instances": total, "converged_single_solve": converged,
+           "solved_in_float32": sum(int(r["ok"].sum())
+                                    for r in run["float32"]),
+           "problems_in_float64": len(run["float64"])}
+    solver = suite_bench.reliability_solver(cns)
+    passes = {
+        "float32": (mgh_benchmark_instances(dtype_str="float32"),
+                    run["float32"]),
+        "float64": ([mgh_benchmark_instances()[i] for i in run["float64"]],
+                    list(run["float64"].values())),
+    }
+    for dname, (batches, recs) in passes.items():
+        dtype = getattr(torch, dname)
+        stop = suite_bench.reliability_stopping(cns, dtype)
+        lanes = mism = plain_ok = 0
+        differing = []
+        for (problem, starts), rec in zip(batches, recs):
+            x0 = torch.from_numpy(starts).to(device=torch.device("cuda"),
+                                             dtype=dtype)
+
+            pres = fs.flat_lbfgs_solve(
+                problem.objective, problem.objective.evaluate(x0), stop,
+                m=solver.m, max_fev=solver.max_linesearch_fev,
+                trip=fs.flat_trip_reference)
+            ps = pres.progress.status.cpu().numpy()
+            lanes += ps.size
+            mism += int((rec["status"] != ps).sum())
+            plain_ok += int(success_mask(
+                problem, pres.state.value.double().cpu().numpy(),
+                pres.state.gradient.abs().amax(-1).double().cpu().numpy(),
+                pres.state.x.abs().amax(-1).double().cpu().numpy()).sum())
+            if (rec["status"] != ps).any():
+                differing.append(problem.name)
+        agree = 1.0 - mism / max(lanes, 1)
+        row[dname] = {"lanes": lanes, "status_mismatches": mism,
+                      "status_agreement": agree,
+                      "kernel_converged": sum(int(r["ok"].sum())
+                                              for r in recs),
+                      "plain_converged": plain_ok,
+                      "problems_differing": differing}
+        log(f"[main] suite {dname}: {lanes} lanes of {len(recs)} problems; "
+            f"kernel against plain: {mism} statuses differ (agreement "
+            f"{agree:.4f}); converged kernel "
+            f"{row[dname]['kernel_converged']}, plain {plain_ok}; problems "
+            f"differing {differing}")
+        if agree < SUITE_STATUS_AGREEMENT[dname]:
+            raise AssertionError(f"suite {dname}: {row[dname]}")
+    row["phase_wall_s"] = time.perf_counter() - t0
+    log(f"[main] suite: single solve converged {converged}/{total} "
+        f"({row['solved_in_float32']} in float32, {len(run['float64'])} "
+        f"problems again in float64), launches {launches}, wall "
+        f"{wall:.1f} s; the phase with the plain versions "
+        f"{row['phase_wall_s']:.1f} s")
+    if converged < SUITE_CONVERGED_MIN * total:
+        raise AssertionError(f"suite: converged {converged}/{total}")
+    return row
 
 
 def op_timing(mods, name, b, n) -> dict:

@@ -44,7 +44,7 @@ KERNELS = {
     "lbfgs_epilogue": [_P] * 22 + [_I] * 5 + _CRIT + [_P],
     "lbfgs_prologue_t": [_P] * 14 + [_I] * 6 + [_P],
     "push_two_loop": [_P] * 9 + [_I] * 6 + [_P],
-    "two_loop": [_P] * 6 + [_I] * 3 + [_P],
+    "two_loop": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 

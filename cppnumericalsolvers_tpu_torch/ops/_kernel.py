@@ -13,12 +13,10 @@ import torch
 import dataclasses
 
 __all__ = ["SMEM_LIMIT", "LaneMapping", "check_args", "check_float",
-           "check_smem", "lane_mapping", "lane_threads", "launch",
-           "mapping_smem_bytes", "two_loop_smem_bytes"]
+           "lane_mapping", "lane_threads", "launch", "mapping_smem_bytes"]
 
 # Shared memory one block may use on Hopper (232,448 bytes).
 SMEM_LIMIT = 227 * 1024
-_MAX_WARPS = 8
 _RED_SLOTS = 8
 _SMS = 132  # streaming multiprocessors of an H100 SXM
 
@@ -47,22 +45,6 @@ def check_float(op: str, dtype) -> None:
         raise TypeError(f"{op} supports float32/float64, got {dtype}")
 
 
-def two_loop_smem_bytes(m: int, n: int, itemsize: int) -> int:
-    """Dynamic shared memory of one block that runs the two-loop: ``q`` (n
-    values), per-row alpha/rho (m each), the usable flags and the
-    block-reduction scratch."""
-    return (_RED_SLOTS * _MAX_WARPS + 2 * m + n) * itemsize + 4 * m
-
-
-def check_smem(op: str, m: int, n: int, itemsize: int) -> None:
-    smem = two_loop_smem_bytes(m, n, itemsize)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"{op}: n={n}, m={m} needs {smem} bytes of shared memory "
-            f"per block, more than the {SMEM_LIMIT} a Hopper block has"
-        )
-
-
 # The lane mapping of the redesigned kernels (csrc/staged.cuh).
 _WARP_N_MAX = 64          # a lane is one warp up to this n
 _LANE_MAX_THREADS = 512   # else one block of up to this many threads
@@ -70,8 +52,12 @@ _LANE_MAX_WARPS = _LANE_MAX_THREADS // 32
 _MAX_LANES_PER_BLOCK = 8
 #: Where the two-loop reads the history rows (staged.cuh ``ROWS_*``;
 #: ``ROWS_REGISTERS``, the whole history held in a warp's registers, is
-#: push_two_loop.cu's alone, at n <= 64 and m <= ``_REG_ROWS``).
+#: push_two_loop.cu's and two_loop.cu's alone, at n <= 64 and m <=
+#: ``_REG_ROWS``).
 ROWS_STREAM, ROWS_STAGED, ROWS_DIRECT, ROWS_REGISTERS = 0, 1, 2, 3
+#: two_loop.cu's own block-per-lane mode: the rows stream through a ring of
+#: ``_RING_DEPTH`` row pairs, each copy issued three rows ahead of its use.
+ROWS_RING, _RING_DEPTH = 4, 4
 _REG_ROWS = 10
 _ELEMENTS_PER_THREAD = 8  # of a row, for n > 64
 # The prologue stages a lane's rows where four such lanes fit an SM, the
@@ -79,6 +65,12 @@ _ELEMENTS_PER_THREAD = 8  # of a row, for n > 64
 # faster in float32, 22 KB a lane, streaming in float64, 45 KB a lane).
 _STAGE_LIMIT = {"lbfgs_prologue": SMEM_LIMIT // 4,
                 "push_two_loop": SMEM_LIMIT // 8}
+# The bare two-loop (read only) never stages: at (1024, 256) and (1024,
+# 1024) staged rows were no faster than streamed ones.  It streams them
+# through its ring where the ring fits two lanes an SM.
+_RING_LIMIT = SMEM_LIMIT // 2
+# Ops whose warp per lane holds the rows in registers where m <= _REG_ROWS.
+_REGISTER_OPS = ("push_two_loop", "two_loop")
 # The epilogue splits a lane over a cluster of up to 4 blocks while the
 # grid has fewer blocks than the card has SMs, each block keeping at least
 # 64 threads of 8 elements (lane_sweep.py: at (256, 4096), two blocks per
@@ -115,12 +107,13 @@ class LaneMapping:
 def lane_smem_bytes(m: int, n: int, itemsize: int, rows: int,
                     lanes: int = 1, warp: bool = True) -> int:
     """Shared memory of a block of ``lanes`` lanes (csrc/staged.cuh
-    ``lane_values`` and ``mapping_smem``): per lane alpha, rho, s.y and the
-    usable flag per row, q, and the staged rows (2 m n) or the stream's two
-    row buffers of s and y (4 n); a block-per-lane block adds its reduction
-    scratch."""
+    ``lane_values`` and ``mapping_smem``; csrc/two_loop.cu ``two_loop_smem``
+    for the ring): per lane alpha, rho, s.y and the usable flag per row, q,
+    and the staged rows (2 m n), the stream's two row buffers of s and y
+    (4 n) or the ring's four (8 n); a block-per-lane block adds its
+    reduction scratch."""
     extra = {ROWS_STAGED: 2 * m * n, ROWS_STREAM: 4 * n, ROWS_DIRECT: 0,
-             ROWS_REGISTERS: 0}
+             ROWS_REGISTERS: 0, ROWS_RING: 2 * _RING_DEPTH * n}
     lane = (4 * m + n + extra[rows]) * itemsize
     red = 0 if warp else 2 * _RED_SLOTS * _LANE_MAX_WARPS * itemsize
     return lanes * lane + red
@@ -155,7 +148,7 @@ def _pick(op: str, b: int, n: int, m: int, itemsize: int):
             cl *= 2
         return 1, cl * lane_threads(-(-n // cl)), ROWS_DIRECT, red, cl
     if warp:
-        rows = (ROWS_REGISTERS if op == "push_two_loop" and m <= _REG_ROWS
+        rows = (ROWS_REGISTERS if op in _REGISTER_OPS and m <= _REG_ROWS
                 else ROWS_DIRECT)
         return lpb, 32, rows, lane_smem_bytes(m, n, itemsize, rows, lpb), 1
 
@@ -165,6 +158,8 @@ def _pick(op: str, b: int, n: int, m: int, itemsize: int):
     rows = ROWS_STREAM
     if smem(ROWS_STAGED) <= _STAGE_LIMIT.get(op, 0):
         rows = ROWS_STAGED
+    if op == "two_loop" and smem(ROWS_RING) <= _RING_LIMIT:
+        rows = ROWS_RING
     if smem(rows) > SMEM_LIMIT:
         rows = ROWS_DIRECT
     return 1, tpl, rows, smem(rows), 1
@@ -180,28 +175,31 @@ def mapping_smem_bytes(op: str, b: int, n: int, m: int, itemsize: int
 def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
                  ) -> LaneMapping:
     """Pick the lane mapping of ``flat_trip``, ``lbfgs_prologue``,
-    ``push_two_loop``, ``mt_trip`` or ``lbfgs_epilogue`` (``op``) for a
-    ``(b, n)`` batch with ``m`` history rows (the last two have none and
-    ignore ``m``).  The rules follow a sweep of every mapping on the card
-    (``lane_sweep.py``; PERF.md).
+    ``push_two_loop``, ``two_loop``, ``mt_trip`` or ``lbfgs_epilogue``
+    (``op``) for a ``(b, n)`` batch with ``m`` history rows (the last two
+    have none and ignore ``m``).  The rules follow a sweep of every mapping
+    on the card (``lane_sweep.py``; PERF.md).
 
     * n <= 64: a warp per lane, reductions by shuffles alone, the rows read
       in place (at n = 32 a row is one cache line); ``b // 264`` lanes per
       block (so there are at least two blocks per SM), between 1 and 8; the
-      last block may be ragged.  The fused push holds the whole history in
-      registers instead where m <= 10 (``ROWS_REGISTERS``): its two-loop
-      then waits on no load.
+      last block may be ragged.  The fused push and the bare two-loop hold
+      the whole history in registers instead where m <= 10
+      (``ROWS_REGISTERS``): their two-loop then waits on no load.
     * larger n: one block per lane of 64 to 512 threads, each owning 8
       elements of a row, which streams the rows through shared memory:
       small blocks keep many lanes in flight.  The prologue and the fused
       push (``push_two_loop``), where every live lane runs the two-loop,
       copy the rows into shared memory instead where four (the push: eight)
-      such lanes fit an SM (n = 256 at m = 10 in float32); above that the
-      shared memory it takes costs more lanes in flight than the reads it
-      saves.  Where the stream's row buffers do not fit a block (n > 5,752
-      in float64 and 11,563 in float32 at m = 10) the rows are read in
-      place (``ROWS_DIRECT``), whose shared memory is q and the per-row
-      scalars: that reaches n = 28,760 in float64 and 57,816 in float32.
+      such lanes fit an SM (n = 256 at m = 10 in float32 for the push);
+      above that the shared memory it takes costs more lanes in flight than
+      the reads it saves.  The bare two-loop (``two_loop``) streams them
+      through a ring of four row pairs (``ROWS_RING``) where two lanes' ring
+      fits an SM (n = 3,195 in float32, 1,581 in float64 at m = 10).
+      Where the stream's row buffers do not fit a block (n > 5,752 in
+      float64 and 11,563 in float32 at m = 10) the rows are read in place
+      (``ROWS_DIRECT``), whose shared memory is q and the per-row scalars:
+      that reaches n = 28,760 in float64 and 57,816 in float32.
       ``mt_trip`` and ``lbfgs_epilogue`` read no history (``ROWS_DIRECT``)
       and hold their 8 elements a thread in registers; the epilogue splits
       a lane over a cluster of 2 or 4 blocks while ``b`` times the cluster

@@ -1,20 +1,14 @@
 // Device code shared by the port's CUDA kernels (flat_trip.cu, mt_trip.cu,
 // lbfgs_prologue.cu, lbfgs_prologue_t.cu, lbfgs_epilogue.cu,
-// push_two_loop.cu, two_loop.cu): block reductions, the MINPACK
+// push_two_loop.cu, two_loop.cu): NaN-propagating min/max, the MINPACK
 // More-Thuente step (cstep, trial setup, one post-evaluation trip), the
-// two-loop recursion with the curvature gate, and the Progress::Update
-// ladder.  Each kernel source includes this header and is compiled on its own
-// into one shared library with a plain C interface.
-//
-// Design of the kernel not redesigned for Hopper (two_loop.cu; the others
-// say how they differ, and staged.cuh holds the lane groups of flat_trip.cu,
-// lbfgs_prologue.cu, push_two_loop.cu, mt_trip.cu and lbfgs_epilogue.cu).
-// One thread block per lane (grid = B);
-// threads stride over n, so each thread owns the same elements j in every
-// vector and history row.  Reductions are warp shuffles plus shared memory,
-// combined across warps in a fixed order, so every thread of a block gets
-// the same bits.  Every thread computes the per-lane scalar logic redundantly
-// from identical inputs; thread 0 alone writes scalars.
+// curvature gate of a history push, the descent check and the
+// Progress::Update ladder, all per-lane scalar logic.  Each kernel source
+// includes this header (lbfgs_prologue_t.cu directly, the others through
+// staged.cuh, which holds their lane groups, reductions and two-loop) and is
+// compiled on its own into one shared library with a plain C interface.
+// Every thread of a lane computes the per-lane scalar logic redundantly from
+// identical inputs; one thread writes scalars.
 //
 // Numerics.  The kernels must agree with their plain PyTorch versions, which
 // follow JAX's semantics: literals are rounded to T before use (T(0.66) * x,
@@ -38,9 +32,7 @@ constexpr int RING = 8;  // plateau ring capacity (core/progress.py)
 constexpr double XTOL = 1e-15, FTOL = 1e-4, GTOL = 0.9, STPMIN = 1e-15,
                  STPMAX = 1e15, XTRAPF = 4.0;
 
-constexpr int MAX_THREADS = 256;
-constexpr int MAX_WARPS = MAX_THREADS / 32;
-constexpr int RED_SLOTS = 8;  // values one block reduction can carry
+constexpr int RED_SLOTS = 8;  // values one group reduction can carry
 
 template <typename T> struct Eps;
 template <> struct Eps<float> {
@@ -67,47 +59,11 @@ struct Crit {
   int f_delta_relative, gradient_norm_relative;
 };
 
-inline int block_threads(int n) {
-  int t = ((n + 31) / 32) * 32;
-  return t < 32 ? 32 : (t > MAX_THREADS ? MAX_THREADS : t);
-}
-
-// Dynamic shared memory of a block that runs the two-loop: the reduction
-// scratch, per-row alpha/rho, q (n values) and the usable flags.
-template <typename T> inline size_t two_loop_smem(int m, int n) {
-  return (size_t)(RED_SLOTS * MAX_WARPS + 2 * m + n) * sizeof(T) +
-         (size_t)m * sizeof(int);
-}
-
 // Launch helper: opt into more than 48 KB of dynamic shared memory.
 template <typename K> inline int allow_smem(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-// Block-wide sums of K values.  Every thread gets the same result: lanes by
-// xor butterfly (commutative pairs), warps summed in a fixed order.
-template <typename T, int K>
-__device__ void block_sum(T (&v)[K], T *red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
-  if (lane == 0)
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[k * MAX_WARPS + warp] = v[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T acc = red[k * MAX_WARPS];
-    for (int w = 1; w < nw; ++w) acc += red[k * MAX_WARPS + w];
-    v[k] = acc;
-  }
-  __syncthreads();
 }
 
 // MINPACK cstep (more_thuente.h:261-407), branch-free as in the JAX
@@ -323,50 +279,6 @@ __device__ Push<T> push_gate(bool valid, T sy, T s2, T y2, int count, int m,
       valid && y2 > eps && isfinite(temp) && fabs(temp) <= T(1e7);
   p.new_gamma = gamma_ok ? nmax(temp, eps) : gamma;
   return p;
-}
-
-// Two-loop recursion over the rows in use (lbfgs.h:141-196).  On entry q (in
-// shared memory) holds the gradient, each thread having written its own
-// elements; on return it holds the direction H*g and every thread may read
-// its own elements.  alphas, rhos and usables are m-long shared scratch.
-template <typename T>
-__device__ void two_loop(const T *hs, const T *hy, T *q, int count, T gamma,
-                         int n, T *alphas, T *rhos, int *usables, T *red) {
-  const T eps = Eps<T>::v;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int r = count - 1; r >= 0; --r) {
-    const T *s_r = hs + (size_t)r * n;
-    const T *y_r = hy + (size_t)r * n;
-    T d[2] = {T(0), T(0)};
-    for (int j = tid; j < n; j += nt) {
-      d[0] += s_r[j] * y_r[j];
-      d[1] += s_r[j] * q[j];
-    }
-    block_sum<T, 2>(d, red);
-    const bool usable = fabs(d[0]) >= eps;
-    const T rho = usable ? T(1) / d[0] : T(0);
-    const T alpha = rho * d[1];
-    if (usable)
-      for (int j = tid; j < n; j += nt) q[j] = q[j] - alpha * y_r[j];
-    if (tid == 0) {
-      alphas[r] = alpha;
-      rhos[r] = rho;
-      usables[r] = usable ? 1 : 0;
-    }
-  }
-  for (int j = tid; j < n; j += nt) q[j] = q[j] * gamma;
-  __syncthreads();  // alphas/rhos/usables from thread 0
-  for (int r = 0; r < count; ++r) {
-    if (!usables[r]) continue;
-    const T *s_r = hs + (size_t)r * n;
-    const T *y_r = hy + (size_t)r * n;
-    T d[1] = {T(0)};
-    for (int j = tid; j < n; j += nt) d[0] += y_r[j] * q[j];
-    block_sum<T, 1>(d, red);
-    const T beta = rhos[r] * d[0];
-    const T coef = alphas[r] - beta;
-    for (int j = tid; j < n; j += nt) q[j] = q[j] + s_r[j] * coef;
-  }
 }
 
 // Descent check of the two-loop direction, the steepest-descent fallback and

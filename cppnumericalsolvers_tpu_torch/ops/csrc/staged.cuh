@@ -1,10 +1,10 @@
 // Device code of the kernels redesigned for Hopper with a lane per warp or
-// block (flat_trip.cu, lbfgs_prologue.cu, push_two_loop.cu and, without the
-// history rows, mt_trip.cu and lbfgs_epilogue.cu): a lane group (one warp
-// or one whole block per lane), its reductions, the history rows on chip,
-// the history push and the two-loop recursion over them, and 16-byte loads
-// and stores.  lbfgs_prologue_t.cu and two_loop.cu compile from common.cuh
-// alone.
+// block (flat_trip.cu, lbfgs_prologue.cu, push_two_loop.cu, two_loop.cu and,
+// without the history rows, mt_trip.cu and lbfgs_epilogue.cu): a lane group
+// (one warp or one whole block per lane), its reductions, the history rows
+// on chip, the history push and the two-loop recursion over them, and
+// 16-byte loads and stores.  lbfgs_prologue_t.cu, whose lanes are split over
+// thread-block clusters, compiles from common.cuh alone.
 //
 // Lanes to threads.  The wrapper picks the mapping
 // (ops/_kernel.py::lane_mapping) and passes it in: at small n a lane is one
@@ -173,8 +173,8 @@ __device__ void stage_rows(const T *hs, const T *hy, T *stage, int count,
 }
 
 // The two-loop recursion (lbfgs.h:141-196) over the rows at ages
-// 0 .. count-1, in the order of common.cuh::two_loop and with the same
-// arithmetic per row.  On entry ``lm.q`` holds the gradient (each thread its
+// 0 .. count-1, newest to oldest and back, with the same arithmetic per row
+// in every mode.  On entry ``lm.q`` holds the gradient (each thread its
 // own elements); on return the direction H*g.  ``rows``: ROWS_STAGED, the
 // rows are in ``lm.rows`` (physical layout, m rows of s then m of y) and
 // their copies have landed; ROWS_STREAM, they are streamed from ``hs``/``hy``

@@ -32,8 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from ._kernel import (check_args, check_float, check_smem, lane_mapping,
-                      launch)
+from ._kernel import check_args, check_float, lane_mapping, launch
 
 __all__ = [
     "lbfgs_push_and_direction",
@@ -134,8 +133,10 @@ def two_loop_direction(gradient, s_memory, y_memory, mem_count, gamma):
     with ``|s.y| < eps`` are skipped.
 
     CPU tensors run :func:`two_loop_direction_reference`; CUDA tensors
-    launch the kernel of ``csrc/two_loop.cu`` on the current stream, or
-    raise.  ``two_loop_direction.launches`` counts kernel launches."""
+    launch the kernel of ``csrc/two_loop.cu`` on the current stream with
+    the lanes mapped by :func:`~._kernel.lane_mapping`, or raise (also
+    where no mapping fits a block: n > 28,760 in float64, 57,816 in float32
+    at m = 10).  ``two_loop_direction.launches`` counts kernel launches."""
     if gradient.dim() == 1:
         return two_loop_direction(*_batch_of_one(
             (gradient, s_memory, y_memory, mem_count, gamma)))[0]
@@ -152,10 +153,11 @@ def two_loop_direction(gradient, s_memory, y_memory, mem_count, gamma):
     if dev.type == "cpu" or b == 0:
         return two_loop_direction_reference(
             gradient, s_memory, y_memory, mem_count, gamma)
-    check_smem("two_loop_direction", m, n, gradient.element_size())
+    mapping = lane_mapping("two_loop", b, n, m, gradient.element_size())
     out = torch.empty_like(gradient)
     launch("two_loop", dev, dtype,
-           (gradient, s_memory, y_memory, mem_count, gamma, out), (b, n, m))
+           (gradient, s_memory, y_memory, mem_count, gamma, out),
+           (b, n, m, *mapping.scalars()))
     two_loop_direction.launches += 1
     return out
 

@@ -25,6 +25,9 @@ records the kernel's device time per launch with ``torch.profiler``
 * ``push_two_loop``: 20 calls on made-up inputs (``chip_smoke.made_up``,
   fresh copies each call) per mapping, at the shapes ``chip_smoke.py`` runs
   it (float32, and float64 at path B's (1024, 256));
+* ``two_loop``: 20 calls on made-up inputs per mapping, in float32 and
+  float64, at path C's shapes and at n = 256 and 2048, on either side of
+  the staging limits;
 * ``lbfgs_epilogue``: a traced solve cut at 40 iterations per mapping
   (lanes per block, threads per lane, cluster), and on made-up inputs
   (``chip_smoke.made_up_epilogue``) a digest of every output's bits per
@@ -59,6 +62,9 @@ PUSH_SHAPES = [(1024, 32, 4), (1024, 256, 4), (1024, 1024, 4),
                (256, 4096, 4), (1024, 256, 8)]
 EPILOGUE_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048),
                    (256, 4096), (64, 16384)]
+TWO_LOOP_SHAPES = [(b, n, w) for w in (4, 8)
+                   for b, n in ((1024, 32), (1024, 256), (1024, 1024),
+                                (512, 2048), (256, 4096))]
 M = 10
 
 
@@ -79,10 +85,12 @@ def variants(K, n, op, itemsize=4):
     modes = (S, D) if op == "flat_trip" else (T, S, D)
     if n <= 64:
         warp = (D,) + modes[:-2]
-        if op == "push_two_loop":
+        if op in ("push_two_loop", "two_loop"):
             warp += (K.ROWS_REGISTERS,)
         return [None] + [(lpb, 32, rows) for lpb in (1, 2, 4, 8)
                          for rows in warp]
+    if op == "two_loop":
+        modes += (K.ROWS_RING,)
     out = [None]
     for tpl in (64, 128, 256, 512):
         if tpl * 16 < n or tpl > n:
@@ -279,6 +287,26 @@ def measure(root, forced):
             out[key] = {"us": us, "launches": count}
             print("[sweep]", key, json.dumps(out[key]), flush=True)
     force(None)
+    for b, n, w in TWO_LOOP_SHAPES:
+        dtype = torch.float32 if w == 4 else torch.float64
+        a = cs.made_up(b, n, dtype, dev)
+        args = [a[k] for k in ("g", "s", "y", "count", "gamma")]
+        dname = "float32" if w == 4 else "float64"
+        for v in (variants(K, n, "two_loop", w) if K else [None]):
+            force(v, "two_loop")
+            tl.two_loop_direction(*args)  # the history is read only
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    tl.two_loop_direction(*args)
+                torch.cuda.synchronize()
+            # two_loop_kernel, or the register-held rows'
+            # two_loop_regs_kernel.
+            us, count = device_us(prof, "two_loop")
+            key = f"two_loop {b}x{n} {dname} {v or 'shipped'}"
+            out[key] = {"us": us, "launches": count}
+            print("[sweep]", key, json.dumps(out[key]), flush=True)
+    force(None)
 
     def force_epilogue(v):
         if K is None:
@@ -321,7 +349,7 @@ def baseline_ptxas(root) -> dict:
 
     out = {}
     for name in ("flat_trip", "lbfgs_prologue", "lbfgs_prologue_t",
-                 "mt_trip", "push_two_loop", "lbfgs_epilogue"):
+                 "mt_trip", "push_two_loop", "lbfgs_epilogue", "two_loop"):
         src = os.path.join(os.path.abspath(root), "cppnumericalsolvers_tpu_torch",
                            "ops", "csrc", f"{name}.cu")
         proc = subprocess.run(

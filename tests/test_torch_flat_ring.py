@@ -286,6 +286,7 @@ def test_build_declares_the_new_entry_points_and_reads_ptxas():
     assert ints == 7 + 6  # b, n, m, max_fev, mapping; the criteria's ints
     assert _build.KERNELS["lbfgs_prologue"].count(_build._I) == 6
     assert _build.KERNELS["push_two_loop"].count(_build._I) == 6
+    assert _build.KERNELS["two_loop"].count(_build._I) == 6
     assert _build.KERNELS["lbfgs_epilogue"].count(_build._I) == 5 + 6
     assert "-v" in _build.NVCC_FLAGS
     text = (

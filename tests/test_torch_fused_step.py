@@ -320,9 +320,10 @@ def test_wrappers_check_their_arguments():
 
 
 def test_prologue_shared_memory_bound_is_checked_before_launch():
-    # The prologue's block holds q (n values) and O(m) scratch; above the
-    # 227 KB a Hopper block can have the wrapper raises, with no fallback.
-    _kernel.check_smem("lbfgs_prologue", 10, 4096, 4)
-    _kernel.check_smem("lbfgs_prologue", 10, 4096, 8)
+    # The prologue's block holds q (n values) and O(m) scratch at least;
+    # above the 227 KB a Hopper block can have the wrapper's mapping raises,
+    # with no fallback.
+    _kernel.lane_mapping("lbfgs_prologue", 4, 4096, 10, 4)
+    _kernel.lane_mapping("lbfgs_prologue", 4, 4096, 10, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        _kernel.check_smem("lbfgs_prologue", 10, 40000, 8)
+        _kernel.lane_mapping("lbfgs_prologue", 4, 40000, 10, 8)

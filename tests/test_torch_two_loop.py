@@ -229,6 +229,80 @@ def test_wrappers_on_cpu_take_the_plain_versions_and_check_arguments():
         ttl.two_loop_direction(g.half(), s.half(), y.half(), count,
                                gamma.half())
     # q (n values) and O(m) scratch must fit a block's shared memory.
-    _kernel.check_smem("two_loop_direction", 10, 4096, 8)
+    _kernel.lane_mapping("two_loop", 4, 4096, 10, 8)
     with pytest.raises(ValueError, match="shared memory"):
-        _kernel.check_smem("two_loop_direction", 10, 40000, 8)
+        _kernel.lane_mapping("two_loop", 4, 40000, 10, 8)
+
+
+# The bare two-loop's lane mapping (ops/_kernel.py::lane_mapping), at the
+# boundaries of its rules.  A block per lane at m = 10 streams the rows
+# through its ring of four row pairs (8 n values) where that fits
+# SMEM_LIMIT // 2, through the two row buffers (4 n values) where those fit
+# a block, and else reads them in place (q and the per-row scalars only).
+S, T, D, R, G = (_kernel.ROWS_STREAM, _kernel.ROWS_STAGED,
+                 _kernel.ROWS_DIRECT, _kernel.ROWS_REGISTERS,
+                 _kernel.ROWS_RING)
+
+
+def pick(b, n, itemsize, m=10):
+    mp = _kernel.lane_mapping("two_loop", b, n, m, itemsize)
+    return mp.lanes_per_block, mp.threads_per_lane, mp.rows, mp.blocks
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b,n,m,want", [
+    # A warp per lane up to n = 64, the rows in registers up to m = 10.
+    (1024, 64, 10, (3, 32, R, 342)),
+    (1024, 64, 11, (3, 32, D, 342)),
+    (1000, 32, 10, (3, 32, R, 334)),
+    (8192, 2, 10, (8, 32, R, 1024)),
+    (1, 2, 10, (1, 32, R, 1)),
+    # A block per lane from n = 65, 64-512 threads of 8 elements each.
+    (1024, 65, 10, (1, 64, G, 1024)),
+    (1024, 65, 11, (1, 64, G, 1024)),
+    (256, 4096, 10, (1, 512, S, 256)),
+])
+def test_two_loop_mapping_at_the_warp_and_register_boundaries(b, n, m, want,
+                                                              itemsize):
+    assert pick(b, n, itemsize, m) == want
+
+
+# (itemsize, the last n on the ring, the last n streamed, the last n in
+# place) at m = 10: the ring while (4 m + 9 n) values and the reduction
+# scratch fit SMEM_LIMIT // 2, streamed while (4 m + 5 n) do SMEM_LIMIT.
+LIMITS = [(4, 3195, 11563, 57816), (8, 1581, 5752, 28760)]
+
+
+@pytest.mark.parametrize("itemsize,ring,stream,direct", LIMITS)
+def test_two_loop_mapping_at_the_row_mode_limits(itemsize, ring, stream,
+                                                 direct):
+    assert pick(64, ring, itemsize)[2] == G
+    assert pick(64, ring + 1, itemsize)[2] == S
+    assert pick(64, stream, itemsize)[2] == S
+    assert pick(64, stream + 1, itemsize)[2] == D
+    assert pick(64, direct, itemsize)[2] == D
+    for n in (ring, ring + 1, stream, stream + 1, direct):
+        mp = _kernel.lane_mapping("two_loop", 64, n, 10, itemsize)
+        assert mp.smem_bytes <= _kernel.SMEM_LIMIT
+        assert mp.smem_bytes == _kernel.lane_smem_bytes(
+            10, n, itemsize, mp.rows, 1, False)
+        assert mp.threads_per_lane == _kernel.lane_threads(n)
+    # The bare two-loop never stages its rows.
+    for n in range(65, stream + 1, 97):
+        assert pick(64, n, itemsize)[2] != T
+    # Past the reach of the rows read in place: raise, no fallback.
+    with pytest.raises(ValueError, match="shared memory"):
+        _kernel.lane_mapping("two_loop", 64, direct + 1, 10, itemsize)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("b,n", [(1024, 32), (1000, 60), (1024, 100),
+                                 (1024, 1024), (256, 4096), (64, 16384)])
+def test_two_loop_takes_the_fused_push_lane_groups(b, n, itemsize):
+    """The bare op and the fused push with ``valid`` off give the same bits
+    on the card (chip_smoke.py) because they give a lane the same threads:
+    the same sum order.  Only where the rows are read may differ."""
+    mine = _kernel.lane_mapping("two_loop", b, n, 10, itemsize)
+    push = _kernel.lane_mapping("push_two_loop", b, n, 10, itemsize)
+    assert (mine.lanes_per_block, mine.threads_per_lane, mine.blocks) == (
+        push.lanes_per_block, push.threads_per_lane, push.blocks)
