@@ -98,7 +98,9 @@ MAIN_SHAPES = [(1024, 32), (8192, 32), (1024, 1024), (256, 4096)]
 HEADLINE_SHAPE = (1024, 1024)
 # The flat kernel's lane mappings (ops/_kernel.py::lane_mapping): warp per
 # lane with a ragged last block (1000, 32), a block per lane at a ragged n
-# (1024, 100), staged rows (1024, 1024) and streamed rows (256, 4096).
+# (1024, 100), staged rows (1024, 1024) and streamed rows (256, 4096); and
+# the MGH-376 suite's own shapes (suite_parity: one lane per block at
+# B = 6-7, n = 2-40).
 PARITY_SHAPES = [(1024, 32), (1000, 32), (1024, 100), (1024, 1024),
                  (256, 4096)]
 PARITY_TRIPS = 50
@@ -394,6 +396,14 @@ def main() -> int:
             check_parity("flat_trip", dname, b, n, r, max_abs_err)
             if r["launches"] < r["calls"]:
                 raise AssertionError("flat_trip kernel did not launch")
+        t0 = time.perf_counter()
+        r = suite_parity(mods, dname)
+        r["seconds"] = time.perf_counter() - t0
+        record[f"suite_parity_{dname}"] = r
+        check_parity("flat_trip", dname, "MGH-376", "2-40", r, max_abs_err)
+        log(f"[parity] flat_trip {dname} at the suite's {len(r['shapes'])} "
+            f"shapes {r['shapes']}: worst problem {r['worst_problem']}, "
+            f"{r['seconds']:.1f} s")
         for b, n in NESTED_PARITY_SHAPES:
             t0 = time.perf_counter()
             nested, cover = nested_parity(
@@ -862,15 +872,16 @@ def upcast(rec):
                         for k, v in vars(rec).items()})
 
 
-def parity(fs, obj, x0, cns, dname, drift=None) -> dict:
+def parity(fs, obj, x0, cns, dname, drift=None, stop=None) -> dict:
     """Feed the identical state to the kernel and the plain version at every
-    trip of a plain-version flat solve and compare every output.  With
-    ``drift`` (a :class:`Drift`) the trip also runs through the plain version
-    on the inputs upcast to float64, and the lanes at an iteration boundary
-    give the direction's distance to it."""
+    trip of a plain-version flat solve (under ``stop``, by default the
+    default stopping) and compare every output.  With ``drift`` (a
+    :class:`Drift`) the trip also runs through the plain version on the
+    inputs upcast to float64, and the lanes at an iteration boundary give the
+    direction's distance to it."""
     import torch
 
-    stop = cns.default_stopping(x0.dtype)
+    stop = stop or cns.default_stopping(x0.dtype)
     st, x_trial = fs.init_flat_state(obj.evaluate(x0), M, MAX_FEV)
     cmp = Compare(RTOL[dname])
     launches0 = fs.flat_trip.launches
@@ -899,6 +910,52 @@ def parity(fs, obj, x0, cns, dname, drift=None) -> dict:
         floats["ring"] = (k_st.ring, st.ring, False)
         cmp.add(b, {"si": (k_st.si, st.si)}, floats)
     return cmp.result(fs.flat_trip.launches - launches0)
+
+
+def suite_parity(mods, dname) -> dict:
+    """``parity`` at the MGH-376 suite's own shapes: at each of its 19
+    (B, n) (B = 6-7, n = 2-40: one lane a block, a warp per lane with idle
+    threads below n = 32 and a ragged second element above) the first
+    problem of that shape from its starts, under the reliability stopping,
+    PARITY_TRIPS trips each (all 58 problems took 117 s on an H100, this
+    about a third of it).  The lane-calls of all are summed into one
+    result, held to check_parity's tolerances."""
+    import torch
+
+    import suite_bench
+    from cppnumericalsolvers_tpu_torch.models import mgh_benchmark_instances
+
+    cns, fs = mods.cns, mods.fs
+    dtype = getattr(torch, dname)
+    stop = suite_bench.reliability_stopping(cns, dtype)
+    total = {"calls": 0, "lane_calls": 0, "mismatched_lane_calls": 0,
+             "mismatched_by_field": {}, "max_abs_err": 0.0,
+             "max_scaled_err": 0.0, "worst_field": "", "launches": 0}
+    shapes, worst = set(), ""
+    for problem, starts in mgh_benchmark_instances(dtype_str=dname):
+        if starts.shape in shapes:
+            continue
+        x0 = torch.from_numpy(starts).to(device=torch.device("cuda"),
+                                         dtype=dtype)
+        r = parity(fs, problem.objective, x0, cns, dname, stop=stop)
+        if r["launches"] < r["calls"]:
+            raise AssertionError(f"flat_trip did not launch on {problem.name}")
+        shapes.add(starts.shape)
+        for key in ("calls", "lane_calls", "mismatched_lane_calls",
+                    "launches"):
+            total[key] += r[key]
+        for field, count in r["mismatched_by_field"].items():
+            total["mismatched_by_field"][field] = (
+                total["mismatched_by_field"].get(field, 0) + count)
+        total["max_abs_err"] = max(total["max_abs_err"], r["max_abs_err"])
+        if r["max_scaled_err"] > total["max_scaled_err"]:
+            total["max_scaled_err"] = r["max_scaled_err"]
+            total["worst_field"] = r["worst_field"]
+            worst = problem.name
+    total["shapes"] = sorted(shapes)
+    total["problems"] = len(shapes)
+    total["worst_problem"] = worst
+    return total
 
 
 def _clone_record(rec):
@@ -1913,7 +1970,7 @@ def two_loop_bits(mods, a, kd, b, n) -> dict:
     args = (a["g"], a["s"], a["y"], a["count"], a["gamma"])
     shipped = K.lane_mapping("two_loop", b, n, M, w)
     warp = shipped.threads_per_lane == 32
-    modes = [K.ROWS_STAGED, K.ROWS_STREAM, K.ROWS_DIRECT]
+    modes = [K.ROWS_STREAM, K.ROWS_DIRECT]
     modes.append(K.ROWS_REGISTERS if warp else K.ROWS_RING)
     tried = [shipped.rows]
     for rows in modes:

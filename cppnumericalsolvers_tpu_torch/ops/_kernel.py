@@ -67,8 +67,8 @@ _STAGE_LIMIT = {"lbfgs_prologue": SMEM_LIMIT // 4,
                 "push_two_loop": SMEM_LIMIT // 8}
 # The bare two-loop (read only) never stages: at (1024, 256) and (1024,
 # 1024) staged rows were no faster than streamed ones.  It streams them
-# through its ring where the ring fits two lanes an SM.
-_RING_LIMIT = SMEM_LIMIT // 2
+# through its ring wherever the ring fits a block: the ring was the faster
+# at every shape swept, (256, 4096) float32 too, with one lane an SM.
 # Ops whose warp per lane holds the rows in registers where m <= _REG_ROWS.
 _REGISTER_OPS = ("push_two_loop", "two_loop")
 # The epilogue splits a lane over a cluster of up to 4 blocks while the
@@ -158,7 +158,7 @@ def _pick(op: str, b: int, n: int, m: int, itemsize: int):
     rows = ROWS_STREAM
     if smem(ROWS_STAGED) <= _STAGE_LIMIT.get(op, 0):
         rows = ROWS_STAGED
-    if op == "two_loop" and smem(ROWS_RING) <= _RING_LIMIT:
+    if op == "two_loop" and smem(ROWS_RING) <= SMEM_LIMIT:
         rows = ROWS_RING
     if smem(rows) > SMEM_LIMIT:
         rows = ROWS_DIRECT
@@ -194,8 +194,9 @@ def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
       such lanes fit an SM (n = 256 at m = 10 in float32 for the push);
       above that the shared memory it takes costs more lanes in flight than
       the reads it saves.  The bare two-loop (``two_loop``) streams them
-      through a ring of four row pairs (``ROWS_RING``) where two lanes' ring
-      fits an SM (n = 3,195 in float32, 1,581 in float64 at m = 10).
+      through a ring of four row pairs (``ROWS_RING``) where the ring fits
+      a block (n = 6,424 in float32, 3,195 in float64 at m = 10), and
+      never stages them.
       Where the stream's row buffers do not fit a block (n > 5,752 in
       float64 and 11,563 in float32 at m = 10) the rows are read in place
       (``ROWS_DIRECT``), whose shared memory is q and the per-row scalars:

@@ -125,9 +125,7 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
 // registers: the rows are loaded with the pair and the gradient before the
 // first reduction, shifted and pushed in registers (a full history's shift
 // is written back as stores only), and the two-loop's 2 count reductions
-// wait on no load.  Each thread owns j = t and t + 32, adds its products in
-// order of j and the warp reduces by xor butterfly: the order and the
-// arithmetic of staged.cuh's ROWS_DIRECT, so the two give the same bits.
+// wait on no load (staged.cuh's regs_two_loop, shared with two_loop.cu).
 template <typename T>
 __global__ void __launch_bounds__(WARP_BLOCK_THREADS, WARP_MIN_BLOCKS)
     push_two_loop_regs_kernel(Args<T> a) {
@@ -215,47 +213,7 @@ __global__ void __launch_bounds__(WARP_BLOCK_THREADS, WARP_MIN_BLOCKS)
         }
   }
 
-  const T eps = Eps<T>::v;
-  const int nc = p.new_count;
-#pragma unroll
-  for (int k = REG_ROWS - 1; k >= 0; --k) {
-    if (k >= nc) continue;
-    T d[2] = {T(0), T(0)};
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) {
-        d[0] += S[k][e] * Y[k][e];
-        d[1] += S[k][e] * q[e];
-      }
-    grp.template sum<2>(d);
-    const bool usable = fabs(d[0]) >= eps;
-    const T rho = usable ? T(1) / d[0] : T(0);
-    const T alpha = rho * d[1];
-    if (usable)
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (tid + 32 * e < n) q[e] = q[e] - alpha * Y[k][e];
-    lm.alphas[k] = alpha;
-    lm.rhos[k] = rho;
-    lm.usable[k] = usable ? T(1) : T(0);
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    if (tid + 32 * e < n) q[e] = q[e] * p.new_gamma;
-#pragma unroll
-  for (int k = 0; k < REG_ROWS; ++k) {
-    if (k >= nc || lm.usable[k] == T(0)) continue;
-    T d[1] = {T(0)};
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) d[0] += Y[k][e] * q[e];
-    grp.template sum<1>(d);
-    const T beta = lm.rhos[k] * d[0];
-    const T coef = lm.alphas[k] - beta;
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) q[e] = q[e] + S[k][e] * coef;
-  }
+  regs_two_loop(grp, lm, q, S, Y, p.new_count, n, p.new_gamma);
 
   T *d = a.d + lane * n;
 #pragma unroll

@@ -439,6 +439,62 @@ __device__ void push_two_loop_rows(Group<T, WARP> &grp, const LaneMem<T> &lm,
   two_loop_rows(grp, lm, hs, hy, rows, p.new_count, head, m, n, p.new_gamma);
 }
 
+// The two-loop recursion of a warp per lane that holds every row in use in
+// registers (ROWS_REGISTERS of push_two_loop.cu and two_loop.cu): rows S[k]
+// and Y[k] for k < count, thread t owning j = t + 32 e of each, q updated
+// in place, the per-row scalars in shared memory.  Each thread adds its
+// products in order of j and the warp reduces by xor butterfly: the order
+// and the arithmetic of two_loop_rows' ROWS_DIRECT, so the two give the
+// same bits.  Inlined, so the rows stay in the caller's registers.
+template <typename T, int R, int E>
+__device__ __forceinline__ void regs_two_loop(Group<T, true> &grp,
+                                              const LaneMem<T> &lm,
+                                              T (&q)[E], const T (&S)[R][E],
+                                              const T (&Y)[R][E], int count,
+                                              int n, T gamma) {
+  const int tid = grp.tid;
+  const T eps = Eps<T>::v;
+#pragma unroll
+  for (int k = R - 1; k >= 0; --k) {
+    if (k >= count) continue;
+    T d[2] = {T(0), T(0)};
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (tid + 32 * e < n) {
+        d[0] += S[k][e] * Y[k][e];
+        d[1] += S[k][e] * q[e];
+      }
+    grp.template sum<2>(d);
+    const bool usable = fabs(d[0]) >= eps;
+    const T rho = usable ? T(1) / d[0] : T(0);
+    const T alpha = rho * d[1];
+    if (usable)
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (tid + 32 * e < n) q[e] = q[e] - alpha * Y[k][e];
+    lm.alphas[k] = alpha;
+    lm.rhos[k] = rho;
+    lm.usable[k] = usable ? T(1) : T(0);
+  }
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    if (tid + 32 * e < n) q[e] = q[e] * gamma;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    if (k >= count || lm.usable[k] == T(0)) continue;
+    T d[1] = {T(0)};
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (tid + 32 * e < n) d[0] += Y[k][e] * q[e];
+    grp.template sum<1>(d);
+    const T beta = lm.rhos[k] * d[0];
+    const T coef = lm.alphas[k] - beta;
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (tid + 32 * e < n) q[e] = q[e] + S[k][e] * coef;
+  }
+}
+
 // VW neighbouring values, loaded or stored as one 16-byte access where
 // VW * sizeof(T) == 16.
 template <typename T, int VW> struct Unit {

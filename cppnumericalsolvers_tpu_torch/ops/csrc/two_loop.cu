@@ -17,17 +17,17 @@
 // block of 64 to 512 threads per lane, each thread owning 8 elements of a
 // row, which streams the rows through a ring of four row pairs in shared
 // memory (ROWS_RING, this kernel's own mode: a row's copy is issued three
-// rows ahead of its use) where the ring fits the mapping's limit, through
-// staged.cuh's two row buffers where those fit, and reads them in place
-// otherwise.  The other row modes (staged on chip, streamed, in place)
-// can be forced for a sweep and give the same bits.
+// rows ahead of its use) where the ring fits a block, through staged.cuh's
+// two row buffers where only those fit, and reads them in place otherwise.
+// The history is read only, so it is never staged whole: there is no
+// write-back to save.  The other row modes can be forced for a sweep and
+// give the same bits.
 //
 // Sum order.  Every mapping adds a thread's products in the order of j and
 // reduces by the lane group's butterfly, as push_two_loop.cu does under the
 // same mapping, so on the same history this kernel and push_two_loop with
 // valid = 0 give the same bits (chip_smoke.py checks it).  The register path
-// is push_two_loop_regs_kernel's two-loop, kept as its own copy so that the
-// push's build (and its register allocation) does not change.
+// runs staged.cuh's regs_two_loop, as push_two_loop_regs_kernel does.
 //
 // What bounds it on an H100: device-memory bytes.  A lane reads g and the
 // rows in use (each row counted once) and writes the direction.
@@ -176,11 +176,8 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
   const T *hy = a.y + lane * m * n;
   const int count = lane_count(a.count, lane, m);
 
-  if (a.rows == ROWS_STAGED)
-    stage_rows(hs, hy, lm.rows, count, 0, m, n, tid, nt);
   // Each thread reads back only its own elements: no barrier.
   for (int j = tid; j < n; j += nt) lm.q[j] = g[j];
-  if (a.rows == ROWS_STAGED) cp_wait<0>();
   bool ring = false;
   if constexpr (!WARP) {
     ring = a.rows == ROWS_RING;
@@ -195,10 +192,8 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
 
 // A warp per lane (n <= 64, m <= REG_ROWS) with every row in use held in
 // registers, loaded with the gradient before the first reduction, so the
-// 2 count reductions of the recursion wait on no load; the per-row scalars
-// go to shared memory, as in push_two_loop_regs_kernel.  Each thread owns
-// j = t and t + 32, adds its products in order of j and the warp reduces by
-// xor butterfly: the order and the arithmetic of staged.cuh's ROWS_DIRECT.
+// 2 count reductions of the recursion (staged.cuh's regs_two_loop, as in
+// push_two_loop_regs_kernel) wait on no load.
 template <typename T>
 __global__ void __launch_bounds__(WARP_BLOCK_THREADS, WARP_MIN_BLOCKS)
     two_loop_regs_kernel(Args<T> a) {
@@ -235,48 +230,7 @@ __global__ void __launch_bounds__(WARP_BLOCK_THREADS, WARP_MIN_BLOCKS)
       Y[r][e] = in ? hy[(size_t)r * n + j] : T(0);
     }
   }
-  const T gamma = a.gamma[lane];
-
-  const T eps = Eps<T>::v;
-#pragma unroll
-  for (int k = REG_ROWS - 1; k >= 0; --k) {
-    if (k >= count) continue;
-    T d[2] = {T(0), T(0)};
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) {
-        d[0] += S[k][e] * Y[k][e];
-        d[1] += S[k][e] * q[e];
-      }
-    grp.template sum<2>(d);
-    const bool usable = fabs(d[0]) >= eps;
-    const T rho = usable ? T(1) / d[0] : T(0);
-    const T alpha = rho * d[1];
-    if (usable)
-#pragma unroll
-      for (int e = 0; e < E; ++e)
-        if (tid + 32 * e < n) q[e] = q[e] - alpha * Y[k][e];
-    lm.alphas[k] = alpha;
-    lm.rhos[k] = rho;
-    lm.usable[k] = usable ? T(1) : T(0);
-  }
-#pragma unroll
-  for (int e = 0; e < E; ++e)
-    if (tid + 32 * e < n) q[e] = q[e] * gamma;
-#pragma unroll
-  for (int k = 0; k < REG_ROWS; ++k) {
-    if (k >= count || lm.usable[k] == T(0)) continue;
-    T d[1] = {T(0)};
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) d[0] += Y[k][e] * q[e];
-    grp.template sum<1>(d);
-    const T beta = lm.rhos[k] * d[0];
-    const T coef = lm.alphas[k] - beta;
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (tid + 32 * e < n) q[e] = q[e] + S[k][e] * coef;
-  }
+  regs_two_loop(grp, lm, q, S, Y, count, n, a.gamma[lane]);
 
   T *d = a.d + lane * n;
 #pragma unroll
@@ -309,7 +263,8 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   if (a.b <= 0) return 0;
   if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) || mp.rows < 0 ||
-      mp.rows > ROWS_RING || 32 * mp.lpb > WARP_BLOCK_THREADS ||
+      mp.rows > ROWS_RING || mp.rows == ROWS_STAGED ||
+      32 * mp.lpb > WARP_BLOCK_THREADS ||
       (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS) ||
       (mp.rows == ROWS_REGISTERS && (mp.tpl != 32 || a.m > REG_ROWS)) ||
       (mp.rows == ROWS_RING && mp.tpl == 32))

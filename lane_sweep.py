@@ -26,8 +26,8 @@ records the kernel's device time per launch with ``torch.profiler``
   fresh copies each call) per mapping, at the shapes ``chip_smoke.py`` runs
   it (float32, and float64 at path B's (1024, 256));
 * ``two_loop``: 20 calls on made-up inputs per mapping, in float32 and
-  float64, at path C's shapes and at n = 256 and 2048, on either side of
-  the staging limits;
+  float64, at path C's shapes and at n = 256 and 2048 (the ring, the
+  stream and the rows in place where each fits a block);
 * ``lbfgs_epilogue``: a traced solve cut at 40 iterations per mapping
   (lanes per block, threads per lane, cluster), and on made-up inputs
   (``chip_smoke.made_up_epilogue``) a digest of every output's bits per
@@ -80,9 +80,9 @@ def smoke():
 
 def variants(K, n, op, itemsize=4):
     """``None`` (the shipped mapping) and the forced ones at width ``n``;
-    ``flat_trip`` takes no staged rows."""
+    ``flat_trip`` and ``two_loop`` take no staged rows."""
     S, T, D = K.ROWS_STREAM, K.ROWS_STAGED, K.ROWS_DIRECT
-    modes = (S, D) if op == "flat_trip" else (T, S, D)
+    modes = (S, D) if op in ("flat_trip", "two_loop") else (T, S, D)
     if n <= 64:
         warp = (D,) + modes[:-2]
         if op in ("push_two_loop", "two_loop"):
