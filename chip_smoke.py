@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Five paths, the first four through ``minimize_batched(objective, x0_batch,
-Lbfgs(m=10))``:
+Six paths, the first four through ``minimize_batched(objective, x0_batch,
+Lbfgs(m=10))``, the last through ``minimize_batched`` with the other
+solvers:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -19,7 +20,14 @@ Lbfgs(m=10))``:
   the generic loop body over ``Lbfgs.step``, whose iteration is one
   ``push_two_loop`` launch (``lbfgs_push_and_direction``), the search's
   ``mt_trip`` launches and cond(H) at the new iterate;
-* path C, the public op ``two_loop_direction`` (the ``two_loop`` kernel).
+* path C, the public op ``two_loop_direction`` (the ``two_loop`` kernel);
+* the other solvers and searches (``solvers_main``): BFGS and gradient
+  descent, whose More-Thuente search runs ``mt_trip`` once per trip;
+  L-BFGS with the Hager-Zhang or Armijo search, whose iteration-granular
+  loop runs ``lbfgs_prologue`` and ``lbfgs_epilogue`` once per iteration
+  (never ``flat_trip``); and conjugate gradient, Newton, trust-region Newton
+  (dense and Hessian-free) and Nelder-Mead, which run no kernel, as in the
+  JAX package.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
@@ -64,7 +72,12 @@ Phases (each raises on failure, so the script then exits non-zero):
            result is held against the same solves through the plain versions
            on the card and against the flat path.
            Paths A, B and C: see ``nested_main(batch_minor=True)``,
-           ``path_b_main`` and ``path_c_main``;
+           ``path_b_main`` and ``path_c_main``.  The MGH-376 suite
+           (``suite_main``).  The other solvers and searches at bench.py's
+           solver-leg shapes (``solvers_main``): launch counts, the host
+           clock and the device-to-host reads of each solve; kernels
+           against plain versions, paths without a kernel against the
+           same solve on the CPU;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
@@ -189,6 +202,34 @@ TWO_LOOP_ELEMENT_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
 # (bench.py:46, the reference's own figure).
 SUITE_STATUS_AGREEMENT = {"float64": 1.0, "float32": 0.99}
 SUITE_CONVERGED_MIN = 0.95
+# The other unconstrained solvers and searches (solvers_main), at bench.py's
+# solver-leg shapes: (label, class, arguments, (B, n), objective mode,
+# conservative preset, float32 iteration cut (0: none), kernels the path
+# launches).  Gradient descent, conjugate gradient and Nelder-Mead are cut
+# (PERF.md §4): gradient descent takes about 4,000 iterations to its end,
+# and conjugate gradient's Armijo search backtracks up to ~100 times an
+# iteration on some lane of 1024.
+SOLVER_RUNS = [
+    ("bfgs", "Bfgs", {}, (1024, 32), "first", False, 0, ("mt_trip",)),
+    ("bfgs", "Bfgs", {}, (256, 256), "first", False, 0, ("mt_trip",)),
+    ("newton", "NewtonDescent", {}, (1024, 32), "second", False, 0, ()),
+    ("newton", "NewtonDescent", {}, (256, 64), "second", False, 0, ()),
+    ("lbfgs_hz", "Lbfgs", {"m": 10, "line_search": "hager_zhang"},
+     (1024, 32), "first", False, 0, ("lbfgs_prologue", "lbfgs_epilogue")),
+    ("lbfgs_armijo", "Lbfgs", {"m": 10, "line_search": "armijo"},
+     (1024, 32), "first", False, 0, ("lbfgs_prologue", "lbfgs_epilogue")),
+    ("gd", "GradientDescent", {}, (1024, 32), "first", True, 300,
+     ("mt_trip",)),
+    ("cg", "ConjugateGradientDescent", {}, (1024, 32), "first", True, 100,
+     ()),
+    ("tr", "TrustRegionNewton", {}, (256, 64), "second", False, 0, ()),
+    ("tr_hessian_free", "TrustRegionNewton", {"hessian_free": True},
+     (256, 64), "first", False, 0, ()),
+    ("nm", "NelderMead", {}, (1024, 8), "first", False, 200, ()),
+]
+SOLVER_SHORT_BUDGET = 5       # iterations of the float64 comparisons
+SOLVER_CPU_XTOL = 1e-10       # card against CPU, paths with no kernel
+SOLVER_PLAIN_XTOL = 1e-12     # kernels against plain versions, float64
 # One made-up call through both prologues, built to reach what no parity
 # solve reaches on the card: the invalid-descent history reset.
 RESET_SHAPES = [(1024, 32), (1000, 32), (1024, 1024)]
@@ -614,6 +655,14 @@ def main() -> int:
     record["suite"] = suite_main(mods)
     for name, count in record["suite"]["launches"].items():
         main_launches[name] += count
+
+    t0 = time.perf_counter()
+    record["solvers"] = [solvers_main(mods, obj, run) for run in SOLVER_RUNS]
+    for row in record["solvers"]:
+        for name, count in row["launches"].items():
+            main_launches[name] += count
+    record["solvers_phase_s"] = time.perf_counter() - t0
+    log(f"[main] solvers: {record['solvers_phase_s']:.1f} s")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -2428,6 +2477,131 @@ def suite_main(mods) -> dict:
         f"{row['phase_wall_s']:.1f} s")
     if converged < SUITE_CONVERGED_MIN * total:
         raise AssertionError(f"suite: converged {converged}/{total}")
+    return row
+
+
+def solvers_main(mods, obj, run) -> dict:
+    """One solver or search of SOLVER_RUNS on the pairwise extended
+    Rosenbrock from starts uniform in [-2, 2] (seed 0), through
+    ``minimize_batched``:
+
+    * the float32 solve (cut where the run says), launch counts and the
+      device-to-host reads (``any_lane.reads``) set to 0 just before and
+      read just after: a path with kernels launches ``mt_trip`` once per
+      search trip (gradient descent, BFGS) or ``lbfgs_prologue`` and
+      ``lbfgs_epilogue`` once per iteration and never ``flat_trip``
+      (L-BFGS with Hager-Zhang or Armijo), and nothing else; a path with
+      none launches nothing.  Finite values, every lane stopped;
+    * a path with kernels: the same float32 solve through the plain
+      versions on the card (statuses equal on at least 99% of lanes), and
+      a float64 solve cut at SOLVER_SHORT_BUDGET iterations with kernels
+      and with plain versions: status, nfev and num_iterations equal on
+      every lane, iterates within SOLVER_PLAIN_XTOL;
+    * a path without: the float64 solve cut at SOLVER_SHORT_BUDGET on the
+      card against the same solve on the CPU: status and nfev equal on
+      every lane, iterates within SOLVER_CPU_XTOL."""
+    import numpy as np
+    import torch
+
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    cns, fs = mods.cns, mods.fs
+    label, cls, kw, (b, n), mode, conservative, cut, names = run
+    solver = getattr(cns, cls)(**kw)
+    tobj = obj if mode == "second" else obj.with_mode(mode)
+    x_np = np.random.default_rng(SEED).uniform(-2.0, 2.0, (b, n))
+
+    def stopping(dtype, budget=0):
+        crit = (cns.conservative_stopping(dtype) if conservative
+                else solver.default_stopping(dtype))
+        return crit.replace(max_iterations=budget) if budget else crit
+
+    def solve(dtype, budget=0, device="cuda"):
+        x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
+        return cns.minimize_batched(tobj, x0, solver,
+                                    stopping(dtype, budget), device=device)
+
+    counted = {"flat_trip": fs.flat_trip, **mods.wrappers}
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    any_lane.reads = 0
+    t0 = time.perf_counter()
+    res = solve(torch.float32, cut)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = any_lane.reads
+    launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+    iterations = int(res.progress.num_iterations.max())
+    want = {k: (res.trips if k == "mt_trip" else iterations) for k in names}
+    if launches != want:
+        raise AssertionError(
+            f"solvers {label} ({b}, {n}): launches {launches}, expected "
+            f"{want} ({iterations} iterations, {res.trips} trips)")
+    for field in ("x", "value"):
+        if not bool(getattr(res.state, field).isfinite().all()):
+            raise AssertionError(f"solvers {label}: {field} not finite")
+    if bool((res.progress.status == 0).any()):
+        raise AssertionError(f"solvers {label}: a lane did not stop")
+    row = {
+        "label": label, "solver": f"{cls}({kw})", "shape": [b, n],
+        "dtype": "float32", "cut": cut, "launches": launches,
+        "batched_iterations": iterations,
+        "mean_iterations": float(res.progress.num_iterations.float().mean()),
+        "trips": res.trips, "host_reads": reads,
+        "reads_per_iteration": reads / max(iterations, 1),
+        "wall_s": wall, "mean_nfev": float(res.state.nfev.float().mean()),
+        "converged_share": converged_share(res, cns),
+        "statuses": torch.bincount(res.progress.status.cpu(),
+                                   minlength=7).tolist(),
+    }
+
+    def short(a, bres):
+        same = {f: bool((getattr(a.progress, f).cpu()
+                         == getattr(bres.progress, f).cpu()).all())
+                for f in ("status", "num_iterations")}
+        same["nfev"] = bool((a.state.nfev.cpu() == bres.state.nfev.cpu())
+                            .all())
+        dx = float((a.state.x.cpu() - bres.state.x.cpu()).abs().max())
+        return same, dx
+
+    if names:
+        plain = {k: mods.plain_all[k] for k in names}
+        t1 = time.perf_counter()
+        with mods.swapped(plain):
+            pres = solve(torch.float32, cut)
+        torch.cuda.synchronize()
+        row["plain_wall_s"] = time.perf_counter() - t1
+        row["status_agreement"] = float(
+            (res.progress.status == pres.progress.status).float().mean())
+        kres = solve(torch.float64, SOLVER_SHORT_BUDGET)
+        with mods.swapped(plain):
+            pres = solve(torch.float64, SOLVER_SHORT_BUDGET)
+        same, dx = short(kres, pres)
+        row["float64_short"] = {"against": "plain versions on the card",
+                                "equal": same, "max_abs_x_diff": dx}
+        ok = (row["status_agreement"] >= 0.99 and all(same.values())
+              and dx <= SOLVER_PLAIN_XTOL)
+    else:
+        cres = solve(torch.float64, SOLVER_SHORT_BUDGET)
+        hres = solve(torch.float64, SOLVER_SHORT_BUDGET, device="cpu")
+        same, dx = short(cres, hres)
+        row["float64_short"] = {"against": "the same solve on the CPU",
+                                "equal": same, "max_abs_x_diff": dx}
+        ok = all(same.values()) and dx <= SOLVER_CPU_XTOL
+    log(f"[main] solvers {label} ({b}, {n}) float32"
+        f"{f' cut at {cut}' if cut else ''}: {iterations} batched "
+        f"iterations, {res.trips} trips, {reads} host reads "
+        f"({row['reads_per_iteration']:.1f} an iteration), launches "
+        f"{launches}, wall {wall:.3f} s, converged "
+        f"{row['converged_share']:.4f}"
+        + (f", status agreement with plain {row['status_agreement']:.4f}"
+           f" (plain {row['plain_wall_s']:.3f} s)" if names else "")
+        + f"; float64 {SOLVER_SHORT_BUDGET} iterations against "
+        f"{row['float64_short']['against']}: equal {same}, max |dx| "
+        f"{dx:.3e}")
+    if not ok:
+        raise AssertionError(f"solvers {label} ({b}, {n}): {row}")
     return row
 
 

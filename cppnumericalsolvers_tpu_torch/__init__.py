@@ -2,9 +2,11 @@
 cppnumericalsolvers_tpu for NVIDIA Hopper GPUs.
 
 Same surface and names as the JAX package for what is ported: objectives,
-the stopping machine, L-BFGS with the More-Thuente search, and the drivers
-(``minimize``, ``minimize_batched`` with warm start and trace, ``resume``,
-the Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
+the stopping machine, the three line searches (More-Thuente, Hager-Zhang,
+Armijo), the seven unconstrained solvers (L-BFGS, gradient descent,
+conjugate gradient, BFGS, Newton, trust-region Newton, Nelder-Mead), and the
+drivers (``minimize``, ``minimize_batched`` with warm start and trace,
+``resume``, the Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
 batched solves (ops/csrc/*.cu: flat_trip, mt_trip, lbfgs_prologue,
 lbfgs_prologue_t, lbfgs_epilogue, push_two_loop, two_loop) are CUDA C++
 built at first use.  Entry points run on the card unless the caller passes
@@ -36,22 +38,36 @@ from .core import (
     status_message,
 )
 from . import linesearch, models, ops, solvers, utils
-from .solvers import Lbfgs
+from .solvers import (
+    Bfgs,
+    ConjugateGradientDescent,
+    GradientDescent,
+    Lbfgs,
+    NelderMead,
+    NewtonDescent,
+    TrustRegionNewton,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "Bfgs",
     "CONVERGED_STATUSES",
+    "ConjugateGradientDescent",
     "DifferentiabilityMode",
     "FunctionState",
+    "GradientDescent",
     "IterationTrace",
     "Lbfgs",
     "MinimizeResult",
+    "NelderMead",
+    "NewtonDescent",
     "Objective",
     "ProgressState",
     "SolverBase",
     "Status",
     "StoppingCriteria",
+    "TrustRegionNewton",
     "conservative_stopping",
     "constant",
     "default_stopping",

@@ -15,6 +15,10 @@ the field names of what it is given:
   ``mem_count`` and ``gamma``) -> the port's :class:`LbfgsInternals`, with
   the history chronological and batch-major ``(B, m, n)`` and no pending
   pair;
+* the internals of the other unconstrained solvers (``BfgsInternals``,
+  ``CgInternals``, ``NewtonInternals``, ``TrInternals``, ``NmInternals``,
+  per instance or with a leading batch axis) -> the port's records of the
+  same names, and gradient descent's empty internals ``()`` -> ``()``;
 * a whole ``LbfgsInternalsT`` (those four fields and the pending pair) ->
   the port's :class:`LbfgsInternalsT`: the history batch-minor
   ``(m * n, B)`` with the JAX package's padding (``n8``, ``B_pad``)
@@ -36,14 +40,22 @@ from .core.callbacks import IterationTrace
 from .core.driver import MinimizeResult
 from .core.objective import FunctionState
 from .core.progress import ProgressState, StoppingCriteria
+from .solvers.bfgs import BfgsInternals
+from .solvers.conjugate_gradient import CgInternals
 from .solvers.lbfgs import LbfgsInternals, LbfgsInternalsT
+from .solvers.nelder_mead import NmInternals
+from .solvers.newton import NewtonInternals
+from .solvers.trust_region import TrInternals
 
 __all__ = ["from_jax_numpy", "history_t_to_rows"]
 
 _INT32_FIELDS = frozenset({
     "nfev", "mem_count", "status", "num_iterations", "x_delta_violations",
-    "f_delta_violations", "past_pos",
+    "f_delta_violations", "past_pos", "iteration",
 })
+_RECORDS = (ProgressState, FunctionState, IterationTrace, LbfgsInternals,
+            BfgsInternals, CgInternals, NewtonInternals, TrInternals,
+            NmInternals)
 
 
 def _fields(obj) -> dict:
@@ -76,6 +88,8 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
     nested (a whole result).  For the flat solve's internals pass ``n`` and
     ``m``; the batch size comes from ``mem_count``.
     """
+    if isinstance(obj, tuple) and not obj:
+        return ()
     fields = _fields(obj)
     names = set(fields)
     crit_names = {f.name for f in dataclasses.fields(StoppingCriteria)}
@@ -97,8 +111,7 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
             state=sub(fields["state"]), progress=sub(fields["progress"]),
             internals=sub(fields["internals"]), trace=sub(fields["trace"]),
         )
-    for cls in (ProgressState, FunctionState, IterationTrace,
-                LbfgsInternals):
+    for cls in _RECORDS:
         if names == {f.name for f in dataclasses.fields(cls)}:
             return cls(**{k: tensor(v, k) for k, v in fields.items()})
     if {"s_memory_t", "y_memory_t", "mem_count", "gamma"} <= names:

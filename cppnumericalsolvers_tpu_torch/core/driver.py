@@ -1,11 +1,12 @@
 """Minimize drivers: ``minimize``, ``minimize_batched`` and ``resume``.
 
-PyTorch counterpart of ``cppnumericalsolvers_tpu/core/driver.py`` for what
-L-BFGS needs.  A batched solve takes one of two loops, by the JAX driver's
-rule:
+PyTorch counterpart of ``cppnumericalsolvers_tpu/core/driver.py`` for the
+unconstrained solvers.  A batched solve takes one of two loops, by the JAX
+driver's rule:
 
-* a fresh solve without a trace goes to the solver's own batched loop
-  (``SolverBase.solve_batched``; for L-BFGS the flat trip-granular solve of
+* a fresh solve without a trace goes to the solver's own batched loop where
+  the solver has one (``SolverBase.supports_solve_batched``; for L-BFGS with
+  the More-Thuente search the flat trip-granular solve of
   ops/flat_solve.py, at every n);
 * a warm start (``internals=``), a trace (``trace=K``), a callback and
   ``resume`` go to the iteration-granular loop here: one loop at batch level
@@ -14,11 +15,16 @@ rule:
   freeze themselves once they stop.  Where the solver says so
   (``supports_batched_native``) the same loop runs the solver's batch-native
   step on its own storage layout, converted at entry and exit;
-* a solve whose Hessian-condition criterion is on (a second-mode objective
-  and ``stopping.condition_hessian > 0``), or whose solver has no fused
-  update for it, takes that loop with the generic body: ``SolverBase.step``,
-  cond(H) at the new iterate (billed as one evaluation), ``update_progress``
-  and the freeze of done lanes.
+* a solve whose solver has no fused update for its objective (every solver
+  but L-BFGS, and L-BFGS with the Hessian-diagonal preconditioner), or
+  whose Hessian-condition criterion is on (a second-mode objective and
+  ``stopping.condition_hessian > 0``), takes that loop with the generic
+  body: ``SolverBase.step``, cond(H) from the solver's internals or at the
+  new iterate (billed as one evaluation), ``update_progress`` and the freeze
+  of done lanes.  A solver that freezes its own internals
+  (``freeze_in_step``: L-BFGS) gets ``done`` and the body selects state and
+  progress; any other gets no ``done`` and the body selects its whole
+  carry, internals included.
 
 ``minimize`` is a batch of one, un-batched on return.  Lanes are
 independent, so the semantics are those of a single solve.
@@ -45,7 +51,7 @@ from .progress import (
     update_progress,
 )
 from .status import Status
-from .tree import tree_map, tree_where
+from .tree import any_lane, tree_map, tree_where
 
 __all__ = [
     "SolverBase",
@@ -62,6 +68,18 @@ class SolverBase:
 
     #: Required objective differentiability: 'none' | 'first' | 'second'.
     mode: str = dataclasses.field(default="first", init=False, repr=False)
+    #: The solver's :meth:`step` takes ``done=`` and returns a done lane's
+    #: internals bit-identical; the generic body then selects only state and
+    #: progress.  Otherwise it selects the whole carry.
+    freeze_in_step: bool = dataclasses.field(
+        default=False, init=False, repr=False
+    )
+
+    def supports_solve_batched(self, objective: Objective) -> bool:
+        """Whether a fresh solve without a trace goes to
+        :meth:`solve_batched`, the solver's own batched loop."""
+        del objective
+        return False
 
     def solve_batched(
         self,
@@ -90,10 +108,9 @@ class SolverBase:
         raise NotImplementedError
 
     def supports_fused_update(self, objective: Objective) -> bool:
-        """Whether :meth:`step_and_update` (and :meth:`solve_batched`) may
-        replace the generic composition of :meth:`step`,
-        ``update_progress`` and the freeze of done lanes for this
-        objective."""
+        """Whether :meth:`step_and_update` may replace the generic
+        composition of :meth:`step`, ``update_progress`` and the freeze of
+        done lanes for this objective."""
         del objective
         return False
 
@@ -114,9 +131,11 @@ class SolverBase:
         done: torch.Tensor | None = None,
     ):
         """One iteration of every lane without the convergence test.
-        Returns ``(next_state, next_internals, evaluations)``; ``state`` is
-        not changed, ``internals`` is consumed, and a ``done`` lane's
-        internals come back bit-identical."""
+        Returns ``(next_state, next_internals, evaluations)``, the last the
+        batched evaluations it made; ``state`` is not changed.  A
+        ``freeze_in_step`` solver gets ``done``, may consume ``internals``
+        and returns a done lane's internals bit-identical; any other gets no
+        ``done`` and leaves ``internals`` as it was."""
         raise NotImplementedError
 
     def default_stopping(self, dtype) -> StoppingCriteria:
@@ -186,7 +205,7 @@ def _solve_loop_batched(
     )
     trips = 0
     # One device-to-host read per iteration: any lane still continuing.
-    while bool((progress.status == cont).any()):
+    while any_lane(progress.status == cont):
         done = progress.status != cont
         if generic:
             state, internals, progress, n_eval = _generic_iteration(
@@ -223,22 +242,33 @@ def _solve_loop_batched(
 
 def _generic_iteration(objective, solver, state, internals, progress,
                        stopping, done, compute_cond_h):
-    """The generic loop body: the solver's step, cond(H) at the new iterate
-    where asked for, the convergence test, and the freeze of done lanes (the
-    solver freezes its own internals)."""
-    new_state, internals, n_eval = solver.step(
-        objective, state, internals, stopping, done=done)
-    cond_h = None
-    if compute_cond_h:
+    """The generic loop body: the solver's step, cond(H), the convergence
+    test, and the freeze of done lanes.
+
+    Solvers that materialise the Hessian (Newton, trust region) give cond(H)
+    in their internals; otherwise it is evaluated at the new iterate where
+    asked for.  A solver may run the test derivative-free whatever the
+    objective's mode (``progress_mode``: Nelder-Mead)."""
+    if solver.freeze_in_step:
+        new_state, new_internals, n_eval = solver.step(
+            objective, state, internals, stopping, done=done)
+    else:
+        new_state, new_internals, n_eval = solver.step(
+            objective, state, internals, stopping)
+    cond_h = getattr(new_internals, "condition_hessian", None)
+    if cond_h is None and compute_cond_h:
         from ..utils.linalg import frobenius_condition
 
         cond_h = frobenius_condition(objective.hessian(new_state.x))
         new_state.nfev = new_state.nfev + 1
+    progress_mode = getattr(solver, "progress_mode", None) or objective.mode
     new_progress = update_progress(
-        progress, state, new_state, stopping, mode=objective.mode,
+        progress, state, new_state, stopping, mode=progress_mode,
         condition_hessian=cond_h,
     )
-    return (tree_where(done, state, new_state), internals,
+    if not solver.freeze_in_step:
+        new_internals = tree_where(done, internals, new_internals)
+    return (tree_where(done, state, new_state), new_internals,
             tree_where(done, progress, new_progress), n_eval)
 
 
@@ -294,7 +324,7 @@ def _solve_batched(objective, x0_batch, solver, stopping, trace, internals,
     compute_cond_h = _wants_driver_cond_h(objective, stopping)
     if (internals is None and trace == 0 and callback is None
             and not compute_cond_h
-            and solver.supports_fused_update(objective)):
+            and solver.supports_solve_batched(objective)):
         return solver.solve_batched(objective, state0, stopping)
     state0 = _own(state0, device)
     internals0 = (

@@ -18,7 +18,7 @@ import functools
 from typing import Callable
 
 import torch
-from torch.func import grad_and_value, hessian, vmap
+from torch.func import grad, grad_and_value, hessian, jvp, vmap
 
 __all__ = [
     "DifferentiabilityMode",
@@ -91,6 +91,29 @@ class Objective:
         return self._batched_value_and_grad(x)
 
     @functools.cached_property
+    def _batched_value(self):
+        return vmap(self.fn)
+
+    def batched_value(self, x: torch.Tensor) -> torch.Tensor:
+        """``(B, n) -> (B,)`` in one vmapped call, without the gradient: the
+        value-only trials of the Armijo search and of the simplex."""
+        return self._batched_value(x)
+
+    @functools.cached_property
+    def _grad(self):
+        return grad(self.fn)
+
+    @functools.cached_property
+    def _batched_grad(self):
+        return vmap(self._grad)
+
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        """The gradient at ``x`` ``(n,)``, or at every row of a ``(B, n)``
+        batch in one vmapped call."""
+        self._require(MODE_FIRST, "gradient")
+        return self._batched_grad(x) if x.dim() == 2 else self._grad(x)
+
+    @functools.cached_property
     def _hessian(self):
         return hessian(self.fn)
 
@@ -102,12 +125,34 @@ class Objective:
         """The dense Hessian at ``x``: ``(n, n)`` for ``(n,)``, ``(B, n, n)``
         for a ``(B, n)`` batch (one vmapped call).  Needs a second-mode
         objective (function_base.h:42-46)."""
-        if self.mode != MODE_SECOND:
-            raise ValueError(
-                f"Objective.hessian needs a 'second'-mode objective, got "
-                f"{self.mode!r}."
-            )
+        self._require(MODE_SECOND, "hessian")
         return self._batched_hessian(x) if x.dim() == 2 else self._hessian(x)
+
+    def _hvp_one(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        return jvp(self._grad, (x,), (v,))[1]
+
+    @functools.cached_property
+    def _batched_hvp(self):
+        return vmap(self._hvp_one)
+
+    def hvp(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """Hessian-vector product ``H(x) v`` by forward-over-reverse: the
+        ``jvp`` of the gradient, two gradient-cost passes and no ``(n, n)``
+        Hessian.  ``x`` and ``v`` are ``(n,)``, or ``(B, n)`` for a batch in
+        one vmapped call.  Needs a first-mode objective."""
+        self._require(MODE_FIRST, "hvp")
+        if x.dim() == 2:
+            return self._batched_hvp(x, v)
+        return self._hvp_one(x, v)
+
+    def _require(self, mode: str, what: str) -> None:
+        # The reference's Hessian-request guard (function_base.h:108-115):
+        # asking a lower-mode objective for a derivative is an error.
+        if _MODE_ORDER[self.mode] < _MODE_ORDER[mode]:
+            raise ValueError(
+                f"Objective of mode '{self.mode}' cannot provide '{what}' "
+                f"(requires mode '{mode}')."
+            )
 
     def evaluate(self, x: torch.Tensor, nfev=0) -> FunctionState:
         """A populated FunctionState at ``x`` (one evaluation); ``x`` may

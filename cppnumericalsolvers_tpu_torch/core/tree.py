@@ -12,14 +12,17 @@ import dataclasses
 
 import torch
 
-__all__ = ["tree_map", "tree_where"]
+__all__ = ["any_lane", "masked_while", "tree_map", "tree_where"]
 
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` to every tensor leaf of ``tree`` (and the matching
-    leaves of ``rest``); anything else passes through from ``tree``."""
+    leaves of ``rest``); tuples and dataclasses are walked, anything else
+    passes through from ``tree``."""
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
+    if type(tree) is tuple:
+        return tuple(tree_map(fn, t, *r) for t, *r in zip(tree, *rest))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return type(tree)(**{
             f.name: tree_map(
@@ -41,3 +44,28 @@ def tree_where(pred, if_true, if_false):
         return torch.where(p, a, b)
 
     return tree_map(pick, if_true, if_false)
+
+
+def any_lane(mask: torch.Tensor) -> bool:
+    """Whether any lane of ``mask`` is set: the predicate of a loop at batch
+    level, and one device-to-host read.  ``any_lane.reads`` counts them."""
+    any_lane.reads += 1
+    return bool(mask.any())
+
+
+any_lane.reads = 0
+
+
+def masked_while(cond, body, carry, live):
+    """A ``lax.while_loop`` as ``vmap`` runs it, at batch level over the
+    lanes of ``live`` ``(B,)``: ``body(carry, active)`` runs while any live
+    lane's ``cond(carry)`` holds (one device-to-host read a pass), and a lane
+    whose ``cond`` is false keeps its carry, by ``torch.where``, so what the
+    body computes for it (a NaN or an inf included) never reaches it.
+    ``active`` tells the body which lanes it runs for, e.g. to restrict a
+    loop nested in it."""
+    while True:
+        active = live & cond(carry)
+        if not any_lane(active):
+            return carry
+        carry = tree_where(active, body(carry, active), carry)

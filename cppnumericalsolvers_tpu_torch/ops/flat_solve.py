@@ -56,6 +56,7 @@ from ..core.progress import (
     update_progress,
 )
 from ..core.status import Status
+from ..core.tree import any_lane
 from .two_loop import (
     push_gate,
     search_direction,
@@ -534,7 +535,7 @@ def flat_lbfgs_solve(
     dtype = st.x0.dtype
     trips = 0
     # One device-to-host read per trip: the any-lane-continuing predicate.
-    while bool((st.si[:, _I_STATUS] == _CONT).any()):
+    while any_lane(st.si[:, _I_STATUS] == _CONT):
         f_t, g_t = objective.batched_value_and_grad(x_trial)
         trip(st, f_t.to(dtype).contiguous(), g_t.to(dtype).contiguous(),
              x_trial, stopping, max_fev)

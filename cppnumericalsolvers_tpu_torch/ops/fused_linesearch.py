@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 
+from ..core.tree import any_lane
 from ..linesearch.more_thuente import (
     _FTOL,
     _STPMAX,
@@ -252,7 +253,7 @@ def batched_more_thuente(
     st = init_search(x0, f0, g0, direction, alpha_init, dginit, max_fev)
     trips = 0
     # One device-to-host read per trip: the any-lane-searching predicate.
-    while bool((st.si[:, _I_INFO] == 0).any()):
+    while any_lane(st.si[:, _I_INFO] == 0):
         f_t, g_t = batched_value_and_grad(st.x_trial)
         mt_trip(x0, direction, f_t.to(dtype).contiguous(),
                 g_t.to(dtype).contiguous(), st, max_fev)

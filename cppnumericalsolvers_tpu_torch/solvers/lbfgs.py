@@ -1,22 +1,25 @@
-"""L-BFGS with the More-Thuente line search.
+"""L-BFGS with a pluggable line search (More-Thuente by default).
 
 PyTorch counterpart of ``cppnumericalsolvers_tpu/solvers/lbfgs.py`` for
 batched solves.  Two loops serve it, as in the JAX package:
 
 * the flat trip-granular solve (ops/flat_solve.py), whose trip is one batched
   objective evaluation and one ``flat_trip`` call: every fresh solve without
-  a trace, at every n (the JAX package's n cut-offs between its lowerings
-  were tuned on a TPU and are not carried over);
+  a trace with the More-Thuente search, at every n (the JAX package's n
+  cut-offs between its lowerings were tuned on a TPU and are not carried
+  over);
 * the iteration-granular loop of core/driver.py, which serves warm starts
-  (``internals=``), traces, callbacks and ``resume``.  Its iteration is one
-  of three steps:
+  (``internals=``), traces, callbacks, ``resume``, and every solve with the
+  Hager-Zhang or Armijo search (the flat trip carries More-Thuente's state
+  machine, so they never reach it).  Its iteration is one of three steps:
 
-  - :meth:`Lbfgs.step_and_update`: ``lbfgs_prologue`` -> the batched
-    More-Thuente search (``mt_trip`` per evaluation) -> ``lbfgs_epilogue``;
+  - :meth:`Lbfgs.step_and_update`: ``lbfgs_prologue`` -> the batched search
+    (More-Thuente: ``mt_trip`` per evaluation; Hager-Zhang and Armijo: plain
+    PyTorch, leaving done lanes out) -> ``lbfgs_epilogue``;
   - :meth:`Lbfgs.batched_step_and_update`: the same with the history in the
     batch-minor layout of ops/fused_step_t.py (``lbfgs_prologue_t``), where
-    :meth:`Lbfgs.supports_batched_native` holds.  The loop converts the
-    history once at entry and once at exit;
+    :meth:`Lbfgs.supports_batched_native` holds (More-Thuente only).  The
+    loop converts the history once at entry and once at exit;
   - :meth:`Lbfgs.step`: the generic step (``lbfgs_push_and_direction``, the
     descent check, the search, the guards in plain PyTorch), for what the
     fused steps do not cover: the Hessian-condition criterion, which the
@@ -117,13 +120,11 @@ class Lbfgs(SolverBase):
     _TRANSPOSED_N_MAX = 0
     _TRANSPOSED_B_MIN = 128
 
-    def __post_init__(self):
-        if self.line_search != "more_thuente":
-            raise NotImplementedError(
-                f"line_search={self.line_search!r} is not ported yet "
-                "(ROADMAP.md queue A, the line searches: "
-                "linesearch/armijo.py, linesearch/hager_zhang.py)."
-            )
+    #: The generic step freezes a done lane's internals itself (the push is
+    #: gated on ``done``), so the driver selects only state and progress.
+    freeze_in_step: bool = dataclasses.field(
+        default=True, init=False, repr=False
+    )
 
     def supports_fused_update(self, objective) -> bool:
         """Whether :meth:`step_and_update` may stand in for :meth:`step` +
@@ -133,15 +134,23 @@ class Lbfgs(SolverBase):
         del objective
         return not self.use_hessian_preconditioner
 
+    def supports_solve_batched(self, objective) -> bool:
+        """Whether a fresh solve without a trace takes the flat solve: the
+        fused-update configuration with the More-Thuente search, whose
+        state machine the flat trip carries."""
+        return (self.supports_fused_update(objective)
+                and self.line_search == "more_thuente")
+
     def supports_batched_native(self, objective, x0_batch) -> bool:
         """Whether the iteration-granular loop of this batch runs on the
         batch-minor history (:meth:`batched_step_and_update`): the
-        fused-update configuration, at least ``_TRANSPOSED_B_MIN`` lanes
-        and n up to ``_TRANSPOSED_N_MAX``.  The rule is the same on the CPU
-        and on the card."""
+        fused-update configuration with the More-Thuente search, at least
+        ``_TRANSPOSED_B_MIN`` lanes and n up to ``_TRANSPOSED_N_MAX``.  The
+        rule is the same on the CPU and on the card."""
         b, n = x0_batch.shape
         return (
             self.supports_fused_update(objective)
+            and self.line_search == "more_thuente"
             and b >= self._TRANSPOSED_B_MIN
             and n <= self._TRANSPOSED_N_MAX
         )
@@ -253,16 +262,26 @@ class Lbfgs(SolverBase):
         alpha_init, dginit, count,
     ):
         it = internals
-        ls = run_line_search(
-            self.line_search, objective.batched_value_and_grad, state.x,
-            state.value, state.gradient, ls_dir, alpha_init,
-            max_fev=self.max_linesearch_fev, dginit=dginit,
-        )
+        ls = self._search(objective, state, state.gradient, ls_dir,
+                          alpha_init, dginit, ~done)
         lbfgs_epilogue(
             state, ls.x, ls.f, ls.g, ls.nfev, count, it.s_pending,
             it.y_pending, it.pending_valid, done, progress, stopping,
         )
         return state, internals, progress, ls.trips
+
+    def _search(self, objective, state, gradient, ls_dir, alpha_init,
+                dginit, active):
+        """The line search from ``state`` along ``ls_dir``; lanes outside
+        ``active`` are left out of the Hager-Zhang and Armijo loops.  Only
+        Armijo asks the objective for value-only evaluations."""
+        return run_line_search(
+            self.line_search, objective.batched_value_and_grad, state.x,
+            state.value, gradient, ls_dir, alpha_init,
+            max_fev=self.max_linesearch_fev, dginit=dginit, active=active,
+            batched_value=(objective.batched_value
+                           if self.line_search == "armijo" else None),
+        )
 
     def step(self, objective, state, internals: LbfgsInternals, stopping,
              done=None):
@@ -328,11 +347,8 @@ class Lbfgs(SolverBase):
 
         # Strong-Wolfe search along -direction (lbfgs.h:226-232); it
         # computes the directional derivative itself.
-        ls = run_line_search(
-            self.line_search, objective.batched_value_and_grad, state.x,
-            state.value, gradient, ls_dir, alpha_init,
-            max_fev=self.max_linesearch_fev,
-        )
+        ls = self._search(objective, state, gradient, ls_dir, alpha_init,
+                          None, None if done is None else ~done)
         nfev = nfev + ls.nfev
 
         # Non-finite guard: keep the last finite state (lbfgs.h:234-241).

@@ -10,6 +10,7 @@ the last bit and end one evaluation apart on the same status.
 
 import subprocess
 import sys
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -200,14 +201,26 @@ def test_shared_memory_bound_is_checked_before_launch():
     assert fs.flat_trip_smem_bytes(10, 40000, 8) > fs._SMEM_LIMIT
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cns.Lbfgs(line_search="armijo")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cns.Lbfgs(line_search="hager_zhang")
+def test_lbfgs_accepts_every_jax_search():
+    # Every search of the JAX package constructs and keeps its name; only
+    # More-Thuente takes the flat solve and the batch-minor loop (the flat
+    # trip carries its state machine), the others the iteration-granular
+    # loop (tests/test_torch_solvers_parity.py counts its launches).
+    obj = tmodels.pairwise_rosenbrock()
+    x0 = torch.zeros(256, 8, dtype=torch.float64)
+    for search in ("more_thuente", "hager_zhang", "armijo"):
+        solver = cns.Lbfgs(line_search=search)
+        assert solver.line_search == JaxLbfgs(line_search=search).line_search
+        flat = search == "more_thuente"
+        assert solver.supports_solve_batched(obj) == flat
+        assert solver.supports_fused_update(obj)
+        with mock.patch.object(cns.Lbfgs, "_TRANSPOSED_N_MAX", 1 << 30):
+            assert solver.supports_batched_native(obj, x0) == flat
     # The Hessian-diagonal preconditioner is ported: it constructs, and its
     # solves are held to JAX's in tests/test_torch_cond_h.py.
-    assert cns.Lbfgs(use_hessian_preconditioner=True).m == 10
+    precond = cns.Lbfgs(use_hessian_preconditioner=True)
+    assert precond.m == 10
+    assert not precond.supports_solve_batched(obj)
 
 
 def test_stopping_criteria_carry_across():
@@ -217,3 +230,26 @@ def test_stopping_criteria_carry_across():
     assert t.max_iterations == 77 and t.past == 5
     assert t.gradient_norm == float(np.float32(5e-5))
     assert t.gradient_norm_relative is True
+
+
+def test_lbfgs_loops_need_only_the_batched_evaluation():
+    # A wrapper that gives only ``mode``, ``evaluate`` and
+    # ``batched_value_and_grad`` (as chip_smoke.py's timed objective does)
+    # drives the iteration-granular loop with More-Thuente and Hager-Zhang;
+    # only Armijo asks for value-only evaluations.
+    obj = tmodels.pairwise_rosenbrock()
+
+    class Wrapped:
+        mode, evaluate = obj.mode, obj.evaluate
+        batched_value_and_grad = obj.batched_value_and_grad
+
+    x0 = torch.from_numpy(np.random.default_rng(2).uniform(-2, 2, (4, 6)))
+    stop = cns.default_stopping().replace(max_iterations=3)
+    for search in ("more_thuente", "hager_zhang"):
+        res = cns.minimize_batched(Wrapped(), x0,
+                                   cns.Lbfgs(line_search=search), stop,
+                                   trace=1, device="cpu")
+        assert int(res.progress.num_iterations.max()) == 4
+    with pytest.raises(AttributeError, match="batched_value"):
+        cns.minimize_batched(Wrapped(), x0, cns.Lbfgs(line_search="armijo"),
+                             stop, device="cpu")
