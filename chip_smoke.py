@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Six paths, the first four through ``minimize_batched(objective, x0_batch,
-Lbfgs(m=10))``, the last through ``minimize_batched`` with the other
-solvers:
+Seven paths, the first four through ``minimize_batched(objective, x0_batch,
+Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
+solvers, the last through L-BFGS-B and ``AugmentedLagrangian``:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -27,7 +27,12 @@ solvers:
   loop runs ``lbfgs_prologue`` and ``lbfgs_epilogue`` once per iteration
   (never ``flat_trip``); and conjugate gradient, Newton, trust-region Newton
   (dense and Hessian-free) and Nelder-Mead, which run no kernel, as in the
-  JAX package.
+  JAX package;
+* the constrained layer (``constrained_main``): L-BFGS-B, whose search runs
+  ``mt_trip`` once per trip, and the augmented-Lagrangian outer loop, whose
+  inner solve with ``Lbfgs`` runs ``lbfgs_prologue``, ``mt_trip`` and
+  ``lbfgs_epilogue`` and with ``Lbfgsb`` the L-BFGS-B step (never
+  ``flat_trip``); and the finite-difference checkers.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
@@ -77,7 +82,12 @@ Phases (each raises on failure, so the script then exits non-zero):
            solver-leg shapes (``solvers_main``): launch counts, the host
            clock and the device-to-host reads of each solve; kernels
            against plain versions, paths without a kernel against the
-           same solve on the CPU;
+           same solve on the CPU.  L-BFGS-B at bench.py's shapes (and with
+           a box per lane), bench.py's AL leg and examples/constrained.py's
+           problems (``constrained_main``): launch counts, times, reads and
+           Cauchy-walk passes; short float64 budgets exact against the
+           plain versions and against the CPU; the checkers' booleans and
+           values against the CPU's;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
@@ -227,6 +237,51 @@ SOLVER_RUNS = [
      (256, 64), "first", False, 0, ()),
     ("nm", "NelderMead", {}, (1024, 8), "first", False, 200, ()),
 ]
+# The constrained layer (constrained_main): bench.py's L-BFGS-B legs
+# (bench.py:435-442; the box pins every odd coordinate at 0.9, so the Cauchy
+# walk crosses real breakpoints), the same with a box per lane, bench.py's
+# AL leg (bench.py:468-512: 64 lanes at n = 4096, 10 outer iterations of at
+# most 40 inner ones) and examples/constrained.py's two problems from 64
+# starts with L-BFGS-B inside; the checkers at n = 32 and 64.
+LBFGSB_RUNS = [("box", (1024, 32)), ("box", (256, 256)),
+               ("lane_boxes", (1024, 32))]
+LBFGSB_BOX = (-2.0, 0.9)
+LANE_BOXES = ((-2.0, 0.9), (-1.5, 1.5))
+AL_LEG = (64, 4096)
+AL_LEG_BUDGET = (10, 40)
+AL_EXAMPLE_STARTS = 64
+AL_EXAMPLE_BOX = (-3.0, 3.0)
+CONSTRAINED_SHORT_LBFGSB = 5     # iterations of the float64 comparisons
+CONSTRAINED_SHORT_AL = (2, 5)    # outer x inner iterations of the same
+# Kernels against plain versions, float64 short budgets: x, the penalty and
+# the multipliers over max(1, rho) of their lane (lambda += rho c scales the
+# last bits of c by rho).
+CONSTRAINED_XTOL = 1e-12
+# The card against the CPU, float64 short budgets, by run: (float bound, share
+# of lanes whose nfev may differ).  Spreads measured on the card (PERF.md
+# §6): L-BFGS-B x 1.2e-14, nfev one apart on 1 lane of 1,024 (a point that
+# lands on a bound is a last bit inside or outside it, and the step bills an
+# evaluation where it is outside); the AL leg x 1.3e-13, multipliers
+# 1.2e-12; the examples x 2.1e-10, multipliers 2.2e-11, nfev apart on up to
+# 31 of 64 lanes (L-BFGS-B reaches the composite's minimizer and its last
+# step searches at the roundoff floor).
+CONSTRAINED_CPU = {"lbfgsb": (1e-12, 0.005), "bench_leg": (1e-11, 0.0),
+                   "example": (1e-9, 1.0)}
+# The float32 AL leg: FINISHED needs |sum(x^2) - n| <= 1e-4, below the
+# float32 resolution of a sum near n = 4096 (its ulp, 4.9e-4), so which
+# lanes finish is the last bit's choice (kernel and plain agreed on 50%).
+# Held instead to both versions stopping on FINISHED or ITERATION_LIMIT with
+# violations within AL_F32_ULPS ulps of n and x within AL_F32_XTOL of each
+# other (measured: 16 ulps and 3.9e-3).
+AL_F32_ULPS = 32
+AL_F32_XTOL = 1e-2
+CONSTRAINED_KERNELS = ("mt_trip", "lbfgs_prologue", "lbfgs_epilogue")
+CHECKER_SIZES = (32, 64)
+# The checkers, card against CPU, relative to the largest entry: the card
+# and the CPU round f differently in its last bit, and a finite difference
+# divides that by a step near 1e-8 (gradient) or its square root squared
+# (Hessian): measured 1.6e-8 to 1.1e-7 at n = 32 and 64 (PERF.md §6).
+CHECKER_RTOL = 1e-6
 SOLVER_SHORT_BUDGET = 5       # iterations of the float64 comparisons
 SOLVER_CPU_XTOL = 1e-10       # card against CPU, paths with no kernel
 SOLVER_PLAIN_XTOL = 1e-12     # kernels against plain versions, float64
@@ -294,8 +349,10 @@ class Mods:
         from cppnumericalsolvers_tpu_torch.ops import fused_step_t as ft
         from cppnumericalsolvers_tpu_torch.ops import two_loop as tl
         from cppnumericalsolvers_tpu_torch.solvers import lbfgs as lb
+        from cppnumericalsolvers_tpu_torch.solvers import lbfgsb as lbb
 
         self.cns, self.build, self.fs, self.fl = cns, _build, fs, fl
+        self.lbb = lbb
         self.K = _kernel
         self.fstep, self.ft, self.tl, self.lb = fstep, ft, tl, lb
         #: Every kernel wrapper but ``flat_trip`` (each counts its launches)
@@ -663,6 +720,13 @@ def main() -> int:
             main_launches[name] += count
     record["solvers_phase_s"] = time.perf_counter() - t0
     log(f"[main] solvers: {record['solvers_phase_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    record["constrained"] = constrained_main(mods, dev)
+    for name, count in record["constrained"]["launches"].items():
+        main_launches[name] += count
+    record["constrained_phase_s"] = time.perf_counter() - t0
+    log(f"[main] constrained: {record['constrained_phase_s']:.1f} s")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -2603,6 +2667,421 @@ def solvers_main(mods, obj, run) -> dict:
     if not ok:
         raise AssertionError(f"solvers {label} ({b}, {n}): {row}")
     return row
+
+
+def _counted_run(mods, run, plain=False):
+    """Run ``run()`` with the launch counts, the device-to-host reads
+    (``any_lane.reads``) and the Cauchy walk's passes set to 0 just before
+    and read just after, through wrappers that count the calls made to
+    ``mt_trip``, ``lbfgs_prologue`` and ``lbfgs_epilogue`` and pass them on
+    to the kernel wrappers (or, with ``plain``, to the plain versions).
+    Returns the result and the figures."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    counted = {"flat_trip": mods.fs.flat_trip, **mods.wrappers}
+    calls = dict.fromkeys(CONSTRAINED_KERNELS, 0)
+
+    def counting(name):
+        target = (mods.plain_all if plain else mods.wrappers)[name]
+
+        def fn(*args, **kwargs):
+            calls[name] += 1
+            return target(*args, **kwargs)
+
+        return fn
+
+    cuda = torch.cuda.is_available()
+    if cuda:
+        torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    any_lane.reads = 0
+    mods.lbb.generalized_cauchy_point.passes = 0
+    t0 = time.perf_counter()
+    with mods.swapped({k: counting(k) for k in calls}):
+        res = run()
+    if cuda:
+        torch.cuda.synchronize()
+    return res, {
+        "wall_s": time.perf_counter() - t0,
+        "calls": dict(calls),
+        "launches": {k: fn.launches for k, fn in counted.items()
+                     if fn.launches},
+        "host_reads": any_lane.reads,
+        "cauchy_passes": mods.lbb.generalized_cauchy_point.passes,
+    }
+
+
+def _same_short(a, b, al=False) -> dict:
+    """Status, num_iterations and nfev equal on every lane, and the largest
+    distance of the iterates (and, for AL results, of the multipliers and
+    the penalty)."""
+    out = {f: bool((getattr(a.progress, f).cpu()
+                    == getattr(b.progress, f).cpu()).all())
+           for f in ("status", "num_iterations")}
+    dnfev = (a.state.nfev.cpu() - b.state.nfev.cpu()).abs()
+    out["nfev"] = bool((dnfev == 0).all())
+    out["nfev_mismatched_lanes"] = int((dnfev != 0).sum())
+    out["nfev_max_diff"] = int(dnfev.max())
+    pairs = [("x", a.state.x, b.state.x)]
+    if al:
+        # The update lambda += rho c multiplies what a last-bit difference
+        # leaves in c by rho: the multipliers are compared over max(1, rho)
+        # of their lane.
+        rho = b.state.penalty.cpu().abs().clamp_min(1.0)[:, None]
+        ma, mb = a.state.multipliers, b.state.multipliers
+        pairs += [("penalty", a.state.penalty, b.state.penalty),
+                  ("equality_over_rho", ma.equality.cpu() / rho,
+                   mb.equality.cpu() / rho),
+                  ("inequality_over_rho", ma.inequality.cpu() / rho,
+                   mb.inequality.cpu() / rho)]
+    out["max_abs_diff"] = {
+        name: (float((p.cpu() - q.cpu()).abs().max()) if p.numel() else 0.0)
+        for name, p, q in pairs}
+    return out
+
+
+def _short_ok(same, tol, nfev_lanes=0) -> bool:
+    """Statuses and iterations equal on every lane, floats within ``tol``,
+    nfev equal on all but ``nfev_lanes`` lanes."""
+    return (same["status"] and same["num_iterations"]
+            and same["nfev_mismatched_lanes"] <= nfev_lanes
+            and max(same["max_abs_diff"].values()) <= tol)
+
+
+def _al_examples(cns):
+    """examples/constrained.py's two problems with their analytic optima:
+    a quadratic with one equality and one inequality, (0.5, 1.5); a linear
+    objective on the circle x0^2 + x1^2 = 2, (-1, -1)."""
+    o = cns.objective
+    quadratic = cns.ConstrainedProblem(
+        o(lambda x: (x[0] - 1.0) ** 2 + (x[1] - 2.0) ** 2, mode="second"),
+        (o(lambda x: x[0] + x[1] - 2.0, mode="second"),),
+        (o(lambda x: x[1] - x[0] - 1.0, mode="second"),))
+    circle = cns.ConstrainedProblem(
+        o(lambda x: x[0] + x[1], mode="second"),
+        (o(lambda x: x[0] ** 2 + x[1] ** 2 - 2.0, mode="second"),))
+    return {"quadratic": (quadratic, (0.5, 1.5)),
+            "circle": (circle, (-1.0, -1.0))}
+
+
+def _al_leg(cns, n):
+    """bench.py's AL leg (bench.py:468-512): f = sum(x) + 0.005 sum(x^2)
+    under the sphere equality sum(x^2) - n = 0."""
+    import torch
+
+    return cns.ConstrainedProblem(
+        cns.objective(lambda x: torch.sum(x) + 0.005 * torch.sum(x * x)),
+        (cns.objective(lambda x: torch.sum(x * x) - float(n)),))
+
+
+def constrained_main(mods, dev) -> dict:
+    """L-BFGS-B, the augmented-Lagrangian layer and the finite-difference
+    checkers on the card (the ``constrained_main`` phase):
+
+    * ``Lbfgsb(m=5, lower=-2, upper=0.9)`` on the pairwise extended
+      Rosenbrock at bench.py's L-BFGS-B shapes (1024, 32) and (256, 256),
+      float32, starts uniform in [-2, 2] from seed 0, each to its own stop,
+      and at (1024, 32) with a box per lane from ``make_internals`` (half
+      the lanes [-2, 0.9], half [-1.5, 1.5]);
+    * ``AugmentedLagrangian(inner_solver=Lbfgs(m=10))`` on bench.py's AL
+      leg, 64 lanes at n = 4096, float32, 10 outer iterations of at most 40
+      inner ones;
+    * ``AugmentedLagrangian(inner_solver=Lbfgsb(m=5, lower=-3, upper=3))``
+      on examples/constrained.py's two problems, 64 starts each, float64,
+      to their own stop: every lane on the analytic optimum within 1e-3;
+    * the checkers on the pairwise Rosenbrock at n = 32 and 64, float64.
+
+    Checks, each raising: (1) kernels against plain versions on the card:
+    float64 at a short budget (L-BFGS-B 5 iterations, AL 2 outer x 5
+    inner) status, nfev and num_iterations equal on every lane and iterates
+    (with multipliers and penalty) within CONSTRAINED_XTOL; float32
+    L-BFGS-B statuses equal on at least 99% of lanes, the float32 AL leg
+    held as AL_F32_ULPS says, the float64 examples' statuses equal on every
+    lane; (2) the same short budgets on the card against the CPU: statuses
+    and iterations equal on every lane, floats and nfev as CONSTRAINED_CPU
+    says; (3) launch counts: ``mt_trip`` once per search trip,
+    ``lbfgs_prologue`` and ``lbfgs_epilogue`` once per inner iteration of
+    the ``Lbfgs``-inner AL solve and never otherwise, ``flat_trip`` never;
+    (4) the checkers: the CPU's booleans, and values within CHECKER_RTOL of
+    the largest entry.  Times, iterations, trips, reads and Cauchy passes
+    go to the record."""
+    import numpy as np
+    import torch
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    rows, launches = [], {}
+
+    def add_launches(st):
+        for k, v in st["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+
+    def starts(b, n, lo=-2.0, hi=2.0):
+        return np.random.default_rng(SEED).uniform(lo, hi, (b, n))
+
+    def check_launches(label, st, want):
+        if "flat_trip" in st["launches"]:
+            raise AssertionError(f"{label}: flat_trip launched")
+        got = {k: st["launches"].get(k, 0) for k in CONSTRAINED_KERNELS}
+        if got != want or got != st["calls"] or got["mt_trip"] == 0:
+            raise AssertionError(
+                f"{label}: launches {got}, calls {st['calls']}, expected "
+                f"{want}")
+
+    # L-BFGS-B --------------------------------------------------------------
+    for label, (b, n) in LBFGSB_RUNS:
+        solver = cns.Lbfgsb(m=5, lower=LBFGSB_BOX[0], upper=LBFGSB_BOX[1])
+        x_np = starts(b, n)
+
+        def solve(dtype, budget=0, device=dev, solver=solver, x_np=x_np,
+                  label=label, b=b, n=n):
+            x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
+            stop = solver.default_stopping(dtype)
+            if budget:
+                stop = stop.replace(max_iterations=budget)
+            internals = None
+            if label == "lane_boxes":
+                half = torch.arange(b, device=device)[:, None] < b // 2
+                lo = torch.where(half, LANE_BOXES[0][0], LANE_BOXES[1][0])
+                up = torch.where(half, LANE_BOXES[0][1], LANE_BOXES[1][1])
+                internals = solver.make_internals(
+                    n, dtype, lo.expand(b, n), up.expand(b, n),
+                    device=device)
+            return cns.minimize_batched(obj, x0, solver, stop,
+                                        internals=internals, device=device)
+
+        res, st = _counted_run(mods, lambda: solve(torch.float32))
+        add_launches(st)
+        iters = int(res.progress.num_iterations.max())
+        trips = st["calls"]["mt_trip"]
+        check_launches(f"lbfgsb {label} ({b}, {n})", st,
+                       {"mt_trip": trips, "lbfgs_prologue": 0,
+                        "lbfgs_epilogue": 0})
+        if trips > res.trips:
+            raise AssertionError("more search trips than evaluations")
+        for field in ("x", "value"):
+            if not bool(getattr(res.state, field).isfinite().all()):
+                raise AssertionError(f"lbfgsb {label}: {field} not finite")
+        if bool((res.progress.status == 0).any()):
+            raise AssertionError(f"lbfgsb {label}: a lane did not stop")
+        lo_box = res.internals.lower
+        up_box = res.internals.upper
+        if bool(((res.state.x < lo_box) | (res.state.x > up_box)).any()):
+            raise AssertionError(f"lbfgsb {label}: x left its box")
+        pres, pst = _counted_run(mods, lambda: solve(torch.float32),
+                                 plain=True)
+        agree = float((res.progress.status == pres.progress.status)
+                      .float().mean())
+        kshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, CONSTRAINED_SHORT_LBFGSB))
+        pshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, CONSTRAINED_SHORT_LBFGSB),
+            plain=True)
+        cshort = solve(torch.float64, CONSTRAINED_SHORT_LBFGSB, "cpu")
+        row = {
+            "solve": f"Lbfgsb(m=5) {label}", "shape": [b, n],
+            "dtype": "float32", "wall_s": st["wall_s"],
+            "plain_wall_s": pst["wall_s"], "iterations": iters,
+            "evaluations": res.trips, "search_trips": trips,
+            "host_reads": st["host_reads"],
+            "reads_per_iteration": st["host_reads"] / max(iters, 1),
+            "cauchy_passes": st["cauchy_passes"],
+            "cauchy_passes_per_iteration": st["cauchy_passes"]
+            / max(iters, 1),
+            "launches": st["launches"], "status_agreement": agree,
+            "converged_share": converged_share(res, cns),
+            "statuses": torch.bincount(res.progress.status.cpu(),
+                                       minlength=7).tolist(),
+            "float64_short_plain": _same_short(kshort, pshort),
+            "float64_short_cpu": _same_short(kshort, cshort),
+        }
+        rows.append(row)
+        log(f"[main] constrained {row['solve']} ({b}, {n}) float32: "
+            f"{iters} iterations, {res.trips} evaluations ({trips} search "
+            f"trips), {st['host_reads']} host reads "
+            f"({row['reads_per_iteration']:.1f} an iteration), "
+            f"{st['cauchy_passes']} Cauchy passes "
+            f"({row['cauchy_passes_per_iteration']:.1f} an iteration), "
+            f"wall {st['wall_s']:.3f} s (plain {pst['wall_s']:.3f} s), "
+            f"status agreement {agree:.4f}, converged "
+            f"{row['converged_share']:.4f}; float64 "
+            f"{CONSTRAINED_SHORT_LBFGSB} iterations against plain "
+            f"{row['float64_short_plain']}, against the CPU "
+            f"{row['float64_short_cpu']}")
+        cpu_tol, cpu_lanes = CONSTRAINED_CPU["lbfgsb"]
+        if (agree < 0.99
+                or not _short_ok(row["float64_short_plain"],
+                                 CONSTRAINED_XTOL)
+                or not _short_ok(row["float64_short_cpu"], cpu_tol,
+                                 cpu_lanes * b)):
+            raise AssertionError(f"lbfgsb {label} ({b}, {n}): {row}")
+
+    # Augmented Lagrangian -----------------------------------------------------
+    b, n = AL_LEG
+    leg = _al_leg(cns, n)
+    outer, inner_cap = AL_LEG_BUDGET
+
+    def al_runs():
+        yield ("bench_leg_lbfgs", leg, cns.Lbfgs(m=M), starts(b, n), outer,
+               inner_cap, torch.float32, None)
+        for name, (problem, optimum) in _al_examples(cns).items():
+            yield (f"example_{name}_lbfgsb", problem,
+                   cns.Lbfgsb(m=5, lower=AL_EXAMPLE_BOX[0],
+                              upper=AL_EXAMPLE_BOX[1]),
+                   starts(AL_EXAMPLE_STARTS, 2), 0, 0, torch.float64,
+                   optimum)
+
+    for label, problem, inner, x_np, cap, icap, dtype, optimum in al_runs():
+        al = cns.AugmentedLagrangian(inner_solver=inner)
+        lbfgs_inner = isinstance(inner, cns.Lbfgs)
+
+        def solve(dtype, cap=cap, icap=icap, device=dev, al=al,
+                  problem=problem, x_np=x_np, inner=inner):
+            x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
+            stop = cns.default_stopping(dtype)
+            istop = inner.default_stopping(dtype)
+            if cap:
+                stop = stop.replace(max_iterations=cap)
+            if icap:
+                istop = istop.replace(max_iterations=icap)
+            return al.minimize_batched(problem, x0, stopping=stop,
+                                       inner_stopping=istop, device=device)
+
+        res, st = _counted_run(mods, lambda: solve(dtype))
+        add_launches(st)
+        outer_its = int(res.progress.num_iterations.max())
+        feasible = float(res.state.max_violation.max())
+        trips = st["calls"]["mt_trip"]
+        per_iteration = res.inner_iterations if lbfgs_inner else 0
+        check_launches(f"al {label}", st,
+                       {"mt_trip": trips, "lbfgs_prologue": per_iteration,
+                        "lbfgs_epilogue": per_iteration})
+        if lbfgs_inner and trips != res.trips:
+            raise AssertionError(f"al {label}: {trips} search trips, "
+                                 f"{res.trips} evaluations")
+        if not bool(res.state.x.isfinite().all()):
+            raise AssertionError(f"al {label}: x not finite")
+        if bool((res.progress.status == 0).any()):
+            raise AssertionError(f"al {label}: a lane did not stop")
+        pres, pst = _counted_run(mods, lambda: solve(dtype), plain=True)
+        agree = float((res.progress.status == pres.progress.status)
+                      .float().mean())
+        plain_dx = float((res.state.x - pres.state.x).abs().max())
+        plain_feasible = float(pres.state.max_violation.max())
+        short = (CONSTRAINED_SHORT_AL if cap == 0
+                 else (min(cap, CONSTRAINED_SHORT_AL[0]),
+                       min(icap, CONSTRAINED_SHORT_AL[1])))
+        kshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, *short))
+        pshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, *short), plain=True)
+        cshort = solve(torch.float64, *short, device="cpu")
+        row = {
+            "solve": f"AugmentedLagrangian({type(inner).__name__}) {label}",
+            "shape": list(x_np.shape), "dtype": str(dtype).split(".")[1],
+            "budget": [cap, icap], "wall_s": st["wall_s"],
+            "plain_wall_s": pst["wall_s"], "outer_iterations": outer_its,
+            "inner_iterations": res.inner_iterations,
+            "evaluations": res.trips, "search_trips": trips,
+            "host_reads": st["host_reads"],
+            "reads_per_inner_iteration": st["host_reads"]
+            / max(res.inner_iterations, 1),
+            "cauchy_passes": st["cauchy_passes"],
+            "cauchy_passes_per_inner_iteration": st["cauchy_passes"]
+            / max(res.inner_iterations, 1),
+            "launches": st["launches"], "status_agreement": agree,
+            "statuses": torch.bincount(res.progress.status.cpu(),
+                                       minlength=7).tolist(),
+            "max_violation": feasible, "plain_max_violation": plain_feasible,
+            "max_abs_x_diff_plain": plain_dx,
+            "float64_short_budget": list(short),
+            "float64_short_plain": _same_short(kshort, pshort, al=True),
+            "float64_short_cpu": _same_short(kshort, cshort, al=True),
+        }
+        if dtype == torch.float32:
+            stopped = (1, 6)  # ITERATION_LIMIT, FINISHED
+            limit = AL_F32_ULPS * torch.finfo(dtype).eps * x_np.shape[1]
+            ok = (all(torch.isin(r.progress.status.cpu(),
+                                 torch.tensor(stopped)).all()
+                      for r in (res, pres))
+                  and max(feasible, plain_feasible) <= limit
+                  and plain_dx <= AL_F32_XTOL)
+        else:
+            ok = agree == 1.0
+        if optimum is not None:
+            err = float((res.state.x.cpu()
+                         - torch.tensor(optimum, dtype=dtype)).abs().max())
+            row["max_abs_error_to_optimum"] = err
+            ok = ok and err <= 1e-3
+        cpu_tol, cpu_lanes = CONSTRAINED_CPU[
+            "bench_leg" if optimum is None else "example"]
+        ok = (ok and _short_ok(row["float64_short_plain"], CONSTRAINED_XTOL)
+              and _short_ok(row["float64_short_cpu"], cpu_tol,
+                            cpu_lanes * len(x_np)))
+        rows.append(row)
+        log(f"[main] constrained {row['solve']} {tuple(x_np.shape)} "
+            f"{row['dtype']}: {outer_its} outer, {res.inner_iterations} "
+            f"inner iterations, {res.trips} evaluations ({trips} search "
+            f"trips), {st['host_reads']} host reads "
+            f"({row['reads_per_inner_iteration']:.1f} an inner iteration), "
+            f"{st['cauchy_passes']} Cauchy passes, wall {st['wall_s']:.3f} s "
+            f"(plain {pst['wall_s']:.3f} s), status agreement {agree:.4f}, "
+            f"max violation {feasible:.3e} (plain {plain_feasible:.3e}), "
+            f"max |x - x_plain| {plain_dx:.3e}"
+            + (f", max |x - x*| {row['max_abs_error_to_optimum']:.2e}"
+               if optimum is not None else "")
+            + f"; float64 {short[0]} x {short[1]} against plain "
+            f"{row['float64_short_plain']}, against the CPU "
+            f"{row['float64_short_cpu']}")
+        if not ok:
+            raise AssertionError(f"al {label}: {row}")
+
+    # Finite-difference checkers -------------------------------------------------
+    utils = cns.utils
+    checkers = []
+    for n in CHECKER_SIZES:
+        x_np = starts(1, n)[0]
+        xs = {d: torch.from_numpy(x_np).to(d) for d in (dev, "cpu")}
+        t0 = time.perf_counter()
+        row = {"n": n, "gradient_rel_err": {}, "hessian_rel_err": {}}
+        flags = {}
+        for d, x in xs.items():
+            flags[str(d)] = (
+                [utils.is_gradient_correct(obj, x, a) for a in range(4)]
+                + [utils.is_hessian_correct(obj, x, a) for a in range(2)])
+        for acc in range(4):
+            g = {d: utils.compute_finite_gradient(obj.fn, x, acc).cpu()
+                 for d, x in xs.items()}
+            row["gradient_rel_err"][acc] = _rel_err(g[dev], g["cpu"])
+        for acc in range(2):
+            h = {d: utils.compute_finite_hessian(obj.fn, x, acc).cpu()
+                 for d, x in xs.items()}
+            row["hessian_rel_err"][acc] = _rel_err(h[dev], h["cpu"])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        row["seconds"] = time.perf_counter() - t0
+        row["flags"] = flags[str(dev)]
+        row["flags_equal"] = flags[str(dev)] == flags["cpu"]
+        worst = max(list(row["gradient_rel_err"].values())
+                    + list(row["hessian_rel_err"].values()))
+        log(f"[main] constrained checkers n = {n} float64: flags "
+            f"{row['flags']} (equal to the CPU's: {row['flags_equal']}), "
+            f"card against CPU relative to the largest entry: gradient "
+            f"{row['gradient_rel_err']}, Hessian {row['hessian_rel_err']}, "
+            f"{row['seconds']:.2f} s")
+        checkers.append(row)
+        if not (row["flags_equal"] and all(row["flags"])
+                and worst <= CHECKER_RTOL):
+            raise AssertionError(f"checkers n = {n}: {row}")
+    return {"solves": rows, "checkers": checkers, "launches": launches}
+
+
+def _rel_err(a, b) -> float:
+    """Largest |a - b| over the largest |b|."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
 def op_timing(mods, name, b, n) -> dict:

@@ -4,9 +4,12 @@ cppnumericalsolvers_tpu for NVIDIA Hopper GPUs.
 Same surface and names as the JAX package for what is ported: objectives,
 the stopping machine, the three line searches (More-Thuente, Hager-Zhang,
 Armijo), the seven unconstrained solvers (L-BFGS, gradient descent,
-conjugate gradient, BFGS, Newton, trust-region Newton, Nelder-Mead), and the
-drivers (``minimize``, ``minimize_batched`` with warm start and trace,
-``resume``, the Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
+conjugate gradient, BFGS, Newton, trust-region Newton, Nelder-Mead),
+L-BFGS-B, the constrained layer (``ConstrainedProblem``, the penalty and
+augmented-Lagrangian composites, ``AugmentedLagrangian``), the
+finite-difference checkers (``utils``), and the drivers (``minimize``,
+``minimize_batched`` with warm start and trace, ``resume``, the
+Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
 batched solves (ops/csrc/*.cu: flat_trip, mt_trip, lbfgs_prologue,
 lbfgs_prologue_t, lbfgs_epilogue, push_two_loop, two_loop) are CUDA C++
 built at first use.  Entry points run on the card unless the caller passes
@@ -15,6 +18,12 @@ built at first use.  Entry points run on the card unless the caller passes
 
 from .core import (
     CONVERGED_STATUSES,
+    ConstrainedProblem,
+    MultiplierState,
+    augmented_lagrangian_value,
+    lagrangian_gradient,
+    to_augmented_lagrangian,
+    to_penalty,
     DifferentiabilityMode,
     FunctionState,
     IterationTrace,
@@ -39,10 +48,12 @@ from .core import (
 )
 from . import linesearch, models, ops, solvers, utils
 from .solvers import (
+    AugmentedLagrangian,
     Bfgs,
     ConjugateGradientDescent,
     GradientDescent,
     Lbfgs,
+    Lbfgsb,
     NelderMead,
     NewtonDescent,
     TrustRegionNewton,
@@ -51,15 +62,19 @@ from .solvers import (
 __version__ = "0.1.0"
 
 __all__ = [
+    "AugmentedLagrangian",
     "Bfgs",
     "CONVERGED_STATUSES",
     "ConjugateGradientDescent",
+    "ConstrainedProblem",
     "DifferentiabilityMode",
     "FunctionState",
     "GradientDescent",
     "IterationTrace",
     "Lbfgs",
+    "Lbfgsb",
     "MinimizeResult",
+    "MultiplierState",
     "NelderMead",
     "NewtonDescent",
     "Objective",
@@ -68,10 +83,12 @@ __all__ = [
     "Status",
     "StoppingCriteria",
     "TrustRegionNewton",
+    "augmented_lagrangian_value",
     "conservative_stopping",
     "constant",
     "default_stopping",
     "init_progress",
+    "lagrangian_gradient",
     "linesearch",
     "max_zero",
     "min_zero",
@@ -84,5 +101,7 @@ __all__ = [
     "resume",
     "solvers",
     "status_message",
+    "to_augmented_lagrangian",
+    "to_penalty",
     "utils",
 ]

@@ -24,6 +24,11 @@ the field names of what it is given:
   ``(m * n, B)`` with the JAX package's padding (``n8``, ``B_pad``)
   stripped, the pending pair carried over, the ring at head 0 (JAX's
   history is chronological);
+* ``LbfgsbInternals`` (per instance or with a leading batch axis) -> the
+  port's :class:`LbfgsbInternals`;
+* ``MultiplierState``, ``AugmentedLagrangeState`` (its multipliers
+  converted as above) and a whole ``AlResult`` (``state``, ``progress``) ->
+  the port's records of the same names;
 * a whole ``MinimizeResult`` (``state``, ``progress``, ``internals``,
   ``trace``, each converted as above) -> the port's
   :class:`MinimizeResult`, which :func:`~.core.driver.resume` continues.
@@ -39,10 +44,13 @@ import torch
 from .core.callbacks import IterationTrace
 from .core.driver import MinimizeResult
 from .core.objective import FunctionState
+from .core.penalty import MultiplierState
 from .core.progress import ProgressState, StoppingCriteria
+from .solvers.augmented_lagrangian import AlResult, AugmentedLagrangeState
 from .solvers.bfgs import BfgsInternals
 from .solvers.conjugate_gradient import CgInternals
 from .solvers.lbfgs import LbfgsInternals, LbfgsInternalsT
+from .solvers.lbfgsb import LbfgsbInternals
 from .solvers.nelder_mead import NmInternals
 from .solvers.newton import NewtonInternals
 from .solvers.trust_region import TrInternals
@@ -51,11 +59,12 @@ __all__ = ["from_jax_numpy", "history_t_to_rows"]
 
 _INT32_FIELDS = frozenset({
     "nfev", "mem_count", "status", "num_iterations", "x_delta_violations",
-    "f_delta_violations", "past_pos", "iteration",
+    "f_delta_violations", "past_pos", "iteration", "count",
 })
 _RECORDS = (ProgressState, FunctionState, IterationTrace, LbfgsInternals,
             BfgsInternals, CgInternals, NewtonInternals, TrInternals,
-            NmInternals)
+            NmInternals, LbfgsbInternals, MultiplierState,
+            AugmentedLagrangeState)
 
 
 def _fields(obj) -> dict:
@@ -111,9 +120,15 @@ def from_jax_numpy(obj, *, n: int | None = None, m: int | None = None,
             state=sub(fields["state"]), progress=sub(fields["progress"]),
             internals=sub(fields["internals"]), trace=sub(fields["trace"]),
         )
+    if names == {"state", "progress"}:
+        return AlResult(state=sub(fields["state"]),
+                        progress=sub(fields["progress"]))
     for cls in _RECORDS:
         if names == {f.name for f in dataclasses.fields(cls)}:
-            return cls(**{k: tensor(v, k) for k, v in fields.items()})
+            return cls(**{
+                k: (sub(v) if isinstance(v, dict) or hasattr(v, "_asdict")
+                    else tensor(v, k))
+                for k, v in fields.items()})
     if {"s_memory_t", "y_memory_t", "mem_count", "gamma"} <= names:
         if n is None or m is None:
             raise ValueError("converting a transposed history needs n and m")

@@ -20,8 +20,10 @@ driver's rule:
   whose Hessian-condition criterion is on (a second-mode objective and
   ``stopping.condition_hessian > 0``), takes that loop with the generic
   body: ``SolverBase.step``, cond(H) from the solver's internals or at the
-  new iterate (billed as one evaluation), ``update_progress`` and the freeze
-  of done lanes.  A solver that freezes its own internals
+  new iterate (billed as one evaluation), ``update_progress``, the solver's
+  ``post_update`` and the freeze of done lanes; the step and the test see
+  the solver's ``transform_stopping`` of the criteria, ``post_update`` the
+  caller's (L-BFGS-B's projected-gradient test).  A solver that freezes its own internals
   (``freeze_in_step``: L-BFGS) gets ``done`` and the body selects state and
   progress; any other gets no ``done`` and the body selects its whole
   carry, internals included.
@@ -141,6 +143,29 @@ class SolverBase:
     def default_stopping(self, dtype) -> StoppingCriteria:
         return default_stopping(dtype)
 
+    def transform_stopping(self, stopping: StoppingCriteria
+                           ) -> StoppingCriteria:
+        """The criteria the step and the generic convergence test see
+        (L-BFGS-B switches the full-gradient test off, lbfgsb.h:258-260);
+        the default is the caller's."""
+        return stopping
+
+    def post_update(
+        self,
+        objective: Objective,
+        state: FunctionState,
+        internals: Any,
+        progress: ProgressState,
+        stopping: StoppingCriteria,
+    ) -> ProgressState:
+        """Runs in the generic body after the convergence test, before done
+        lanes are frozen, with the caller's untransformed ``stopping``, so a
+        solver can impose a convergence signal of its own (L-BFGS-B's
+        projected-gradient test, lbfgsb.h:280-283).  The default returns
+        ``progress``."""
+        del objective, state, internals, stopping
+        return progress
+
     def check_mode(self, objective: Objective) -> None:
         order = {"none": 0, "first": 1, "second": 2}
         if order[objective.mode] < order[self.mode]:
@@ -194,6 +219,7 @@ def _solve_loop_batched(
     criterion is on, billed as one evaluation per iteration."""
     cont = int(Status.CONTINUE)
     b = state.value.shape[0]
+    stopping_inner = solver.transform_stopping(stopping)
     generic = compute_cond_h or not solver.supports_fused_update(objective)
     native = not generic and solver.supports_batched_native(
         objective, state.x)
@@ -209,13 +235,13 @@ def _solve_loop_batched(
         done = progress.status != cont
         if generic:
             state, internals, progress, n_eval = _generic_iteration(
-                objective, solver, state, internals, progress, stopping,
-                done, compute_cond_h)
+                objective, solver, state, internals, progress,
+                stopping_inner, done, compute_cond_h, stopping)
         else:
             step = (solver.batched_step_and_update if native
                     else solver.step_and_update)
             state, internals, progress, n_eval = step(
-                objective, state, internals, progress, stopping, done
+                objective, state, internals, progress, stopping_inner, done
             )
         trips += n_eval
         if trace_buf is not None:
@@ -241,14 +267,16 @@ def _solve_loop_batched(
 
 
 def _generic_iteration(objective, solver, state, internals, progress,
-                       stopping, done, compute_cond_h):
+                       stopping, done, compute_cond_h, user_stopping=None):
     """The generic loop body: the solver's step, cond(H), the convergence
-    test, and the freeze of done lanes.
+    test, the solver's ``post_update``, and the freeze of done lanes.
 
-    Solvers that materialise the Hessian (Newton, trust region) give cond(H)
-    in their internals; otherwise it is evaluated at the new iterate where
-    asked for.  A solver may run the test derivative-free whatever the
-    objective's mode (``progress_mode``: Nelder-Mead)."""
+    ``stopping`` is the solver's ``transform_stopping`` of the caller's
+    ``user_stopping`` (None: the same); the step and the test see the
+    first, ``post_update`` the second.  Solvers that materialise the Hessian (Newton, trust region)
+    give cond(H) in their internals; otherwise it is evaluated at the new
+    iterate where asked for.  A solver may run the test derivative-free
+    whatever the objective's mode (``progress_mode``: Nelder-Mead)."""
     if solver.freeze_in_step:
         new_state, new_internals, n_eval = solver.step(
             objective, state, internals, stopping, done=done)
@@ -266,6 +294,9 @@ def _generic_iteration(objective, solver, state, internals, progress,
         progress, state, new_state, stopping, mode=progress_mode,
         condition_hessian=cond_h,
     )
+    new_progress = solver.post_update(
+        objective, new_state, new_internals, new_progress,
+        stopping if user_stopping is None else user_stopping)
     if not solver.freeze_in_step:
         new_internals = tree_where(done, internals, new_internals)
     return (tree_where(done, state, new_state), new_internals,

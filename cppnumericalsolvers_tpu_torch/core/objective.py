@@ -23,6 +23,7 @@ from torch.func import grad, grad_and_value, hessian, jvp, vmap
 __all__ = [
     "DifferentiabilityMode",
     "FunctionState",
+    "LaneObjective",
     "Objective",
     "objective",
     "constant",
@@ -213,6 +214,66 @@ class Objective:
 
     def __neg__(self):
         return Objective(lambda x, f=self.fn: -f(x), self.mode)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class LaneObjective(Objective):
+    """An objective with operands of its own in every lane: ``fn(x,
+    *operands)``, where each operand has a leading batch axis.  Its batched
+    calls vmap the operands together with ``x``, so lane b's value depends
+    on ``operands[k][b]`` only: the augmented-Lagrangian composite of a
+    batch, whose multipliers and penalty differ by lane.  The un-batched
+    calls pass the operands as they are (one instance's).  It does not
+    compose (``+``, ``*``, ...)."""
+
+    operands: tuple = ()
+
+    def value(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(x, *self.operands)
+
+    def _vg(self, x, *operands):
+        if self.mode == MODE_NONE:
+            return self.fn(x, *operands), torch.zeros_like(x)
+        g, v = grad_and_value(self.fn)(x, *operands)
+        return v, g
+
+    def value_and_grad(self, x: torch.Tensor):
+        return self._vg(x, *self.operands)
+
+    def batched_value_and_grad(self, x: torch.Tensor):
+        return vmap(self._vg)(x, *self.operands)
+
+    def batched_value(self, x: torch.Tensor) -> torch.Tensor:
+        return vmap(self.fn)(x, *self.operands)
+
+    def gradient(self, x: torch.Tensor) -> torch.Tensor:
+        self._require(MODE_FIRST, "gradient")
+        g = grad(self.fn)
+        return (vmap(g)(x, *self.operands) if x.dim() == 2
+                else g(x, *self.operands))
+
+    def hessian(self, x: torch.Tensor) -> torch.Tensor:
+        self._require(MODE_SECOND, "hessian")
+        h = hessian(self.fn)
+        return (vmap(h)(x, *self.operands) if x.dim() == 2
+                else h(x, *self.operands))
+
+    def hvp(self, x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        self._require(MODE_FIRST, "hvp")
+        g = grad(self.fn)
+
+        def one(x, v, *operands):
+            return jvp(lambda z: g(z, *operands), (x,), (v,))[1]
+
+        return (vmap(one)(x, v, *self.operands) if x.dim() == 2
+                else one(x, v, *self.operands))
+
+    def with_mode(self, mode: str) -> "LaneObjective":
+        if _MODE_ORDER[mode] > _MODE_ORDER[self.mode]:
+            raise ValueError(
+                f"Cannot upgrade objective mode '{self.mode}' -> '{mode}'."
+            )
+        return LaneObjective(self.fn, mode, self.operands)
 
 
 def _as_objective(value, like: Objective) -> Objective:

@@ -31,6 +31,7 @@ __all__ = [
     "conservative_stopping",
     "init_progress",
     "update_progress",
+    "update_progress_constrained",
 ]
 
 # Static capacity of the plateau ring buffer; the dynamic window ``past``
@@ -328,4 +329,54 @@ def update_progress(
         status=status,
         past_ring=ring,
         past_pos=past_pos,
+    )
+
+
+def update_progress_constrained(
+    progress: ProgressState,
+    prev_x,
+    cur_x,
+    prev_value,
+    cur_value,
+    gradient_norm,
+    max_violation,
+    max_lagrangian_gradient,
+    crit: StoppingCriteria,
+) -> ProgressState:
+    """The constrained (augmented-Lagrangian) branch of ``Progress::Update``
+    (progress.h:217-253): the iteration limit, then the hard stop on a
+    non-finite violation or KKT norm, then feasibility and KKT stationarity
+    together give FINISHED, else CONTINUE.  None of the unconstrained delta
+    tests apply.  Works on any leading batch dimensions."""
+    num_iterations = progress.num_iterations + 1
+    f_delta = torch.abs(cur_value - prev_value)
+    x_delta = torch.amax(torch.abs(cur_x - prev_x), dim=-1)
+
+    status = torch.full_like(progress.status, int(Status.CONTINUE))
+    status = _first(
+        status,
+        (crit.max_iterations > 0) & (num_iterations > crit.max_iterations),
+        Status.ITERATION_LIMIT,
+    )
+    # The NaN hard stop (progress.h:235-239): nothing of the iterate can be
+    # recovered; the outer solver's best-iterate tracker rescues the result.
+    non_finite = (~torch.isfinite(max_violation)
+                  | ~torch.isfinite(max_lagrangian_gradient))
+    status = _first(status, non_finite, Status.ITERATION_LIMIT)
+    primal_feasible = torch.abs(max_violation) <= crit.constraint_threshold
+    kkt_stationary = (
+        max_lagrangian_gradient <= crit.kkt_stationarity_threshold
+        if crit.kkt_stationarity_threshold > 0
+        else torch.ones_like(primal_feasible))
+    status = _first(status, primal_feasible & kkt_stationary,
+                    Status.FINISHED)
+    return dataclasses.replace(
+        progress,
+        num_iterations=num_iterations.to(torch.int32),
+        x_delta=x_delta,
+        f_delta=f_delta,
+        gradient_norm=torch.as_tensor(gradient_norm,
+                                      dtype=cur_value.dtype).to(
+            cur_value.device),
+        status=status,
     )

@@ -253,3 +253,46 @@ def test_lbfgs_loops_need_only_the_batched_evaluation():
     with pytest.raises(AttributeError, match="batched_value"):
         cns.minimize_batched(Wrapped(), x0, cns.Lbfgs(line_search="armijo"),
                              stop, device="cpu")
+
+
+# Names of the constrained layer, L-BFGS-B and the checkers that both
+# packages export, by submodule ("" is the package).
+SHARED_NAMES = {
+    "": ("ConstrainedProblem", "MultiplierState",
+         "augmented_lagrangian_value", "lagrangian_gradient",
+         "to_augmented_lagrangian", "to_penalty"),
+    "core": ("ConstrainedProblem", "MultiplierState", "penalty_value",
+             "quadratic_equality_penalty", "quadratic_inequality_penalty_ge",
+             "quadratic_inequality_penalty_lt",
+             "update_progress_constrained"),
+    "solvers": ("AlResult", "AugmentedLagrangeState", "AugmentedLagrangian",
+                "Lbfgsb", "projected_gradient_inf_norm"),
+    "utils": ("compute_finite_gradient", "compute_finite_hessian",
+              "is_gradient_correct", "is_hessian_correct"),
+}
+
+
+@pytest.mark.parametrize("module", sorted(SHARED_NAMES))
+def test_constrained_layer_and_checkers_export_the_jax_names(module):
+    import importlib
+
+    suffix = f".{module}" if module else ""
+    port = importlib.import_module(f"cppnumericalsolvers_tpu_torch{suffix}")
+    ref = importlib.import_module(f"cppnumericalsolvers_tpu{suffix}")
+    for name in SHARED_NAMES[module]:
+        assert hasattr(ref, name), name
+        assert name in port.__all__ and hasattr(port, name), name
+
+
+def test_constrained_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the default device is usable")
+    problem = cns.ConstrainedProblem(
+        tmodels.sphere(), (cns.objective(lambda x: x[0] - 1.0),))
+    al = cns.AugmentedLagrangian(inner_solver=cns.Lbfgsb())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        al.minimize(problem, torch.ones(3, dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        al.minimize_batched(problem, torch.ones(2, 3, dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cns.minimize(tmodels.sphere(), torch.ones(3), cns.Lbfgsb())

@@ -7,8 +7,10 @@ the body freezes them.  Applied to a carry whose lane is done, the body must
 return that lane's whole carry (state, solver internals, progress)
 bit-identical, for every solver: L-BFGS through its fused step (each of the
 three searches) and through the generic step it freezes itself
-(``freeze_in_step``, the Hessian-condition criterion's path), every other
-solver through the generic body's select of the whole carry.
+(``freeze_in_step``, the Hessian-condition criterion's path), L-BFGS-B
+through the generic body with its stopping hooks and the internals it
+freezes itself, every other solver through the generic body's select of the
+whole carry.
 
 Two live iterations give the internals real content first.  The live lanes
 are held to the JAX package's body (``core.driver._make_body``, vmapped) on
@@ -52,6 +54,7 @@ SOLVERS = [
     ("tr", "TrustRegionNewton", {}, False),
     ("tr_hessian_free", "TrustRegionNewton", {"hessian_free": True}, False),
     ("nm", "NelderMead", {}, False),
+    ("lbfgsb", "Lbfgsb", {"m": 3, "lower": -1.5, "upper": 1.0}, False),
 ]
 
 
@@ -77,7 +80,8 @@ def port_body(obj, solver, stopping, cond_h):
                 obj, state, internals, progress, stopping, done)
             return state, internals, progress
         state, internals, progress, _ = _generic_iteration(
-            obj, solver, state, internals, progress, stopping, done, cond_h)
+            obj, solver, state, internals, progress,
+            solver.transform_stopping(stopping), done, cond_h, stopping)
         return state, internals, progress
 
     return body
