@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Seven paths, the first four through ``minimize_batched(objective, x0_batch,
+Eight paths, the first four through ``minimize_batched(objective, x0_batch,
 Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
-solvers, the last through L-BFGS-B and ``AugmentedLagrangian``:
+solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the last
+through the multi-device solves of ``parallel``:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -32,7 +33,14 @@ solvers, the last through L-BFGS-B and ``AugmentedLagrangian``:
   ``mt_trip`` once per trip, and the augmented-Lagrangian outer loop, whose
   inner solve with ``Lbfgs`` runs ``lbfgs_prologue``, ``mt_trip`` and
   ``lbfgs_epilogue`` and with ``Lbfgsb`` the L-BFGS-B step (never
-  ``flat_trip``); and the finite-difference checkers.
+  ``flat_trip``); and the finite-difference checkers;
+* the multi-device solves (``parallel_main``): ``minimize_sharded``, whose
+  ranks each run the flat solve (``flat_trip``) or L-BFGS-B (``mt_trip``)
+  on their block of lanes, in a world of one under NCCL and on two gloo
+  ranks sharing the card (``chip_smoke.py --parallel-rank``, processes of
+  their own); ``minimize_model_sharded`` on ``Lbfgs(two_loop_impl="xla")``,
+  which runs no kernel, at n = 4,194,304 and 1,048,576 float64; and
+  ``two_loop_impl="xla"`` alone beyond the kernels' reach.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
@@ -87,7 +95,11 @@ Phases (each raises on failure, so the script then exits non-zero):
            problems (``constrained_main``): launch counts, times, reads and
            Cauchy-walk passes; short float64 budgets exact against the
            plain versions and against the CPU; the checkers' booleans and
-           values against the CPU's;
+           values against the CPU's.  The multi-device solves
+           (``parallel_main``, parts (a)-(d) of the comment above
+           PARALLEL_SHAPES): bit-equality with the unsharded solves,
+           launch counts, the collectives inside each loop and after it
+           (``parallel.comm.CollectiveLog``), walls and reads;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
@@ -313,6 +325,34 @@ DIRECTION_RTOL = {"float64": 1e-9, "float32": 1e-4}
 # float32 lanes allowed to disagree at one trip (a comparison that flips on
 # a last-bit difference of a dot product): at most 0.1%.
 F32_MISMATCH_SHARE = 1e-3
+# The multi-device solves (parallel_main), each with what it is held to:
+# (a) minimize_sharded in a world of one (NCCL, this process) at the
+#     throughput grid's shapes, bit-equal to minimize_batched;
+# (b) minimize_sharded on two gloo ranks sharing the card (two processes;
+#     NCCL refuses two ranks on one GPU): L-BFGS at (1024, 32) and
+#     __graft_entry__.py's Lbfgsb(m=5, lower=0.5, upper=4.0) case from
+#     starts in [1, 3] at the same shape, bit-equal to this process's solve
+#     of each rank's block of lanes;
+# (c) minimize_model_sharded on the view-form extended Rosenbrock from
+#     x = -1.2, float64, Lbfgs(m=10): at n = 4,194,304 in a world of one,
+#     bit-equal to the unsharded Lbfgs(two_loop_impl="xla") solve; at n =
+#     1,048,576 on two gloo ranks, status and nfev equal to the world of
+#     one at that n, x within MODEL_XTOL, the value within MODEL_VALUE_RTOL
+#     (tests/test_model_sharded.py's tolerances);
+# (d) Lbfgs(two_loop_impl="xla") alone at (4, 65,536) float32, beyond the
+#     history kernels' reach: no launch, a convergence status; "auto"
+#     raises there.
+PARALLEL_SHAPES = [(8192, 32), (1024, 1024)]
+PARALLEL_PAIR_SHAPE = (1024, 32)
+PARALLEL_BOX = (0.5, 4.0)
+PARALLEL_BOX_STARTS = (1.0, 3.0)
+MODEL_N = 4_194_304
+MODEL_PAIR_N = 1_048_576
+MODEL_XTOL = 1e-8
+MODEL_VALUE_RTOL = 1e-10
+XLA_SHAPE = (4, 65536)
+PARALLEL_RANKS = 2
+PARALLEL_RANK_TIMEOUT = 400
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # Where each float32 kernel's drift from the exact answer is measured
@@ -727,6 +767,14 @@ def main() -> int:
         main_launches[name] += count
     record["constrained_phase_s"] = time.perf_counter() - t0
     log(f"[main] constrained: {record['constrained_phase_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    record["parallel"] = parallel_main(mods, dev)
+    for name, count in record["parallel"]["launches"].items():
+        main_launches[name] += count
+    record["parallel_phase_s"] = time.perf_counter() - t0
+    log(f"[main] parallel: {record['parallel_phase_s']:.1f} s "
+        f"(ranks {record['parallel']['ranks_s']:.1f} s)")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -3212,5 +3260,546 @@ def routing(mods, obj, x0, solver, stop, major_timing=None) -> dict:
     return row
 
 
+def rosenbrock_view(x):
+    """The pairwise extended Rosenbrock written so that DTensor keeps it
+    sharded over n: ``view(-1, 2)`` splits every shard into whole pairs."""
+    import torch
+
+    p = x.view(-1, 2)
+    return torch.sum(100.0 * (p[:, 1] - p[:, 0] ** 2) ** 2
+                     + (1.0 - p[:, 0]) ** 2)
+
+
+def launch_counts(mods) -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    out = {name: w.launches for name, w in mods.wrappers.items()}
+    out["flat_trip"] = mods.fs.flat_trip.launches
+    return out
+
+
+def zero_launches(mods) -> None:
+    for w in mods.wrappers.values():
+        w.launches = 0
+    mods.fs.flat_trip.launches = 0
+
+
+def uniform_start(b, n, lo, hi, dtype, dev):
+    import numpy as np
+    import torch
+
+    x0 = np.random.default_rng(SEED).uniform(lo, hi, (b, n))
+    return torch.from_numpy(x0).to(device=dev, dtype=dtype)
+
+
+def timed_call(fn):
+    """``(fn(), host seconds)`` between two synchronises."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def host_summary(res) -> dict | None:
+    """A result's per-lane tensors, on the host, and its trips."""
+    if res is None:
+        return None
+    out = {"x": res.state.x, "value": res.state.value,
+           "nfev": res.state.nfev, "status": res.progress.status,
+           "iterations": res.progress.num_iterations}
+    out = {k: v.detach().cpu() for k, v in out.items()}
+    out["trips"] = res.trips
+    return out
+
+
+def same_bits(got, want, keys=("status", "nfev", "iterations", "x")) -> dict:
+    import torch
+
+    return {k: bool(torch.equal(got[k], want[k])) for k in keys}
+
+
+def logged_call(fn):
+    """``fn()`` under the port's collective log: ``(result, collectives)``,
+    the collectives by ``kind:elements``, split into those issued inside
+    the solve's loop (before its last predicate read) and after it."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+    from cppnumericalsolvers_tpu_torch.parallel.comm import CollectiveLog
+
+    with CollectiveLog() as clog:
+        out = fn()
+        torch.cuda.synchronize()
+    last = any_lane.reads
+    split = {"in_loop": {}, "after": {}}
+    for e in clog.entries:
+        key = f"{e['kind']}:{e['numel']}"
+        part = split["in_loop" if e["reads"] < last else "after"]
+        part[key] = part.get(key, 0) + 1
+    return out, split
+
+
+def pair_cases(cns, dev):
+    """Part (b)'s solves: (label, solver, global starts)."""
+    import torch
+
+    b, n = PARALLEL_PAIR_SHAPE
+    return [
+        ("lbfgs", cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV),
+         uniform_start(b, n, -2.0, 2.0, torch.float32, dev)),
+        ("lbfgsb", cns.Lbfgsb(m=5, lower=PARALLEL_BOX[0],
+                              upper=PARALLEL_BOX[1]),
+         uniform_start(b, n, *PARALLEL_BOX_STARTS, torch.float32, dev)),
+    ]
+
+
+def parallel_rank(rank: int, world: int, where: str) -> int:
+    """One of part (b)'s gloo ranks (``chip_smoke.py --parallel-rank RANK
+    WORLD DIR``), on card 0 with every other rank: the batch-sharded solves
+    of :func:`pair_cases`, then the model-sharded solve at MODEL_PAIR_N
+    (timed, then again under the collective log).  Writes its record to
+    ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    mods = Mods()
+    cns = mods.cns
+    from cppnumericalsolvers_tpu_torch import parallel
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+    from cppnumericalsolvers_tpu_torch.parallel.comm import rank_device
+
+    parallel.initialize_distributed(
+        backend="gloo", rank=rank, world_size=world,
+        store=dist.FileStore(os.path.join(where, "store"), world))
+    dev = rank_device()
+    obj = cns.models.pairwise_rosenbrock()
+    stop32 = cns.default_stopping(torch.float32)
+    rec = {"rank": rank, "device": str(dev)}
+    try:
+        mesh = parallel.make_mesh(axis="batch", device=dev)
+        # A first solve warms the process (kernel libraries, allocator).
+        warm = pair_cases(cns, dev)[0]
+        parallel.minimize_sharded(obj, warm[2][:64], warm[1], stop32,
+                                  mesh=mesh, device=dev)
+        for label, solver, x0 in pair_cases(cns, dev):
+            zero_launches(mods)
+            res, wall = timed_call(lambda: parallel.minimize_sharded(
+                obj, x0, solver, stop32, mesh=mesh, device=dev))
+            rec[label] = {"result": host_summary(res),
+                          "launches": launch_counts(mods), "wall_s": wall}
+        model_mesh = parallel.make_mesh(axis="model", device=dev)
+        x0 = torch.full((MODEL_PAIR_N,), -1.2, dtype=torch.float64,
+                        device=dev)
+
+        def model_solve():
+            return parallel.minimize_model_sharded(
+                cns.objective(rosenbrock_view), x0, cns.Lbfgs(m=M),
+                mesh=model_mesh, device=dev)
+
+        zero_launches(mods)
+        reads0 = any_lane.reads
+        res, wall = timed_call(model_solve)
+        rec["model"] = {"result": host_summary(res),
+                        "launches": launch_counts(mods), "wall_s": wall,
+                        "reads": any_lane.reads - reads0}
+        del res
+        _, rec["model"]["collectives"] = logged_call(model_solve)
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, os.path.join(where, f"rank{rank}.pt"))
+    return 0
+
+
+def run_parallel_ranks(where: str) -> list:
+    """Start PARALLEL_RANKS rank processes (:func:`parallel_rank`) on card
+    0, wait for all of them, and return their records.  A rank that fails
+    or outlasts PARALLEL_RANK_TIMEOUT fails the phase; every process is
+    stopped before this returns."""
+    import shutil
+
+    import torch
+
+    shutil.rmtree(where, ignore_errors=True)
+    os.makedirs(where)
+    env = {**os.environ, "LOCAL_RANK": "0", "OMP_NUM_THREADS": "1"}
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--parallel-rank",
+         str(r), str(PARALLEL_RANKS), where],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(PARALLEL_RANKS)]
+    outs = []
+    deadline = time.perf_counter() + PARALLEL_RANK_TIMEOUT
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for r in failed:
+            log(f"[parallel] rank {r} exited {procs[r].returncode}:\n"
+                + (outs[r] if r < len(outs) else "")[-4000:])
+        raise AssertionError(f"parallel ranks {failed} failed")
+    return [torch.load(os.path.join(where, f"rank{r}.pt"),
+                       weights_only=False) for r in range(PARALLEL_RANKS)]
+
+
+def _lane_leaves(res) -> int:
+    """The tensor leaves of a result's state, progress and internals: one
+    gather each."""
+    from cppnumericalsolvers_tpu_torch.core.tree import tree_map
+
+    leaves = []
+    for part in (res.state, res.progress, res.internals):
+        tree_map(leaves.append, part)
+    return len(leaves)
+
+
+def parallel_batch_world_of_one(mods, mesh, b, n, dev) -> dict:
+    """Part (a) at one shape; see PARALLEL_SHAPES."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch import parallel
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
+    stop32 = cns.default_stopping(torch.float32)
+    x0 = uniform_start(b, n, -2.0, 2.0, torch.float32, dev)
+
+    def batched():
+        return cns.minimize_batched(obj, x0, solver, stop32)
+
+    def sharded():
+        return parallel.minimize_sharded(obj, x0, solver, stop32, mesh=mesh,
+                                         device=dev)
+
+    # In turns: batched, sharded, sharded, batched; the first sharded solve
+    # is the one whose launches count.
+    ref, ref_wall = timed_call(batched)
+    leaves = _lane_leaves(ref)
+    ref = host_summary(ref)
+    zero_launches(mods)
+    res, wall = timed_call(sharded)
+    launches = launch_counts(mods)
+    got = host_summary(res)
+    del res
+    walls = [wall, timed_call(sharded)[1]]
+    ref_walls = [ref_wall, timed_call(batched)[1]]
+    _, coll = logged_call(lambda: parallel.minimize_sharded(
+        obj, x0, solver, stop32, mesh=mesh, device=dev))
+    row = {"shape": [b, n], "dtype": "float32", "trips": got["trips"],
+           "launches": launches, "bit_equal": same_bits(got, ref),
+           "sharded_wall_s": walls, "minimize_batched_wall_s": ref_walls,
+           "batched_iterations": int(got["iterations"].max()),
+           "collectives": coll, "gathered_leaves": leaves}
+    log(f"[parallel] (a) world of one, NCCL, ({b}, {n}) float32: "
+        f"{got['trips']} trips, flat_trip launches {launches['flat_trip']}, "
+        f"bit-equal to minimize_batched {row['bit_equal']}, walls "
+        f"{walls} s against {ref_walls} s; collectives in the loop "
+        f"{coll['in_loop']}, after it {coll['after']}")
+    if not all(row["bit_equal"].values()):
+        raise AssertionError(f"(a) ({b}, {n}) differs: {row}")
+    if launches["flat_trip"] != got["trips"] or got["trips"] <= 0 or any(
+            v for k, v in launches.items() if k != "flat_trip"):
+        raise AssertionError(f"(a) ({b}, {n}) launches: {launches}")
+    if coll["in_loop"] or sum(
+            v for k, v in coll["after"].items()
+            if k.startswith("all_gather:")) != leaves or coll["after"].get(
+            "all_reduce:1") != 1 or len(
+            [k for k in coll["after"] if not k.startswith("all_gather:")
+             ]) != 1:
+        raise AssertionError(f"(a) ({b}, {n}) collectives: {coll}")
+    return row
+
+
+def parallel_pair_check(mods, ranks, dev) -> list:
+    """Part (b): every rank holds the same whole result, equal bit for bit
+    to this process's solve of each rank's block of lanes; launches per
+    rank."""
+    import torch
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    stop32 = cns.default_stopping(torch.float32)
+    rows = []
+    for label, solver, x0 in pair_cases(cns, dev):
+        got = ranks[0][label]["result"]
+        agree_ranks = all(all(same_bits(r[label]["result"], got).values())
+                          for r in ranks[1:])
+        lanes = x0.shape[0] // PARALLEL_RANKS
+        blocks = [host_summary(cns.minimize_batched(
+            obj, x0[i * lanes:(i + 1) * lanes], solver, stop32))
+            for i in range(PARALLEL_RANKS)]
+        want = {k: torch.cat([blk[k] for blk in blocks])
+                for k in ("x", "value", "nfev", "status", "iterations")}
+        whole = host_summary(cns.minimize_batched(obj, x0, solver, stop32))
+        # Whether the objective's bits at the start depend on the batch it
+        # is evaluated in (the reductions' launch shapes differ).
+        f_all, g_all = obj.batched_value_and_grad(x0)
+        f_blk, g_blk = obj.batched_value_and_grad(x0[:lanes])
+        eval_same = bool(torch.equal(f_all[:lanes], f_blk)
+                         and torch.equal(g_all[:lanes], g_blk))
+        # And those of a batched product of L-BFGS-B's kind, W^T W of its
+        # (B, 2m, n) W at m = 5 (cuBLAS picks its algorithm by the batch).
+        hist = uniform_start(x0.shape[0] * 10, x0.shape[1], -1.0, 1.0,
+                             x0.dtype, dev).view(x0.shape[0], 10, -1)
+        gram = hist @ hist.transpose(-1, -2)
+        gram_blk = hist[:lanes] @ hist[:lanes].transpose(-1, -2)
+        gemm_same = bool(torch.equal(gram[:lanes], gram_blk))
+        # How far the block and the whole batch are apart after one
+        # iteration: [lanes whose x differs, largest |dx|] by precision.
+        first = {}
+        for dt in (torch.float32, torch.float64):
+            one = cns.default_stopping(dt).replace(max_iterations=1)
+            xw = cns.minimize_batched(obj, x0.to(dt), solver, one).state.x
+            xb = cns.minimize_batched(obj, x0[:lanes].to(dt), solver,
+                                      one).state.x
+            first[str(dt).split(".")[1]] = [
+                int((xw[:lanes] != xb).any(-1).sum()),
+                float((xw[:lanes] - xb).abs().max())]
+        launches = [r[label]["launches"] for r in ranks]
+        kernel = "flat_trip" if label == "lbfgs" else "mt_trip"
+        row = {"case": label, "shape": list(x0.shape), "dtype": "float32",
+               "ranks": PARALLEL_RANKS, "backend": "gloo",
+               "trips": got["trips"],
+               "bit_equal_to_blocks": same_bits(got, want),
+               "ranks_agree": agree_ranks,
+               "status_agreement_whole_batch": float(
+                   (got["status"] == whole["status"]).double().mean()),
+               "x_max_abs_diff_whole_batch": float(
+                   (got["x"] - whole["x"]).abs().max()),
+               "whole_batch_converged_share": float(torch.isin(
+                   whole["status"],
+                   torch.tensor(cns.CONVERGED_STATUSES)).double().mean()),
+               "evaluation_bit_equal_in_a_block": eval_same,
+               "batched_product_bit_equal_in_a_block": gemm_same,
+               "one_iteration_lanes_apart": first,
+               "launches_by_rank": launches,
+               "wall_s_by_rank": [r[label]["wall_s"] for r in ranks],
+               "converged_share": float(torch.isin(
+                   got["status"],
+                   torch.tensor(cns.CONVERGED_STATUSES)).double().mean())}
+        log(f"[parallel] (b) {PARALLEL_RANKS} gloo ranks on one card, "
+            f"{label} {tuple(x0.shape)} float32: {got['trips']} trips; "
+            f"{kernel} launches by rank "
+            f"{[c[kernel] for c in launches]}; bit-equal to the blocks "
+            f"solved here {row['bit_equal_to_blocks']}; status agreement "
+            f"with the whole batch solved here "
+            f"{row['status_agreement_whole_batch']:.4f} (x within "
+            f"{row['x_max_abs_diff_whole_batch']:.3e}; converged "
+            f"{row['converged_share']:.4f} against "
+            f"{row['whole_batch_converged_share']:.4f}; the start evaluated "
+            f"in a block bit-equal to the whole batch's: {eval_same}; a "
+            f"batched product's: {gemm_same}; after one iteration [lanes "
+            f"apart of {lanes}, largest |dx|]: {first})")
+        if not (agree_ranks and all(row["bit_equal_to_blocks"].values())):
+            raise AssertionError(f"(b) {label} differs: {row}")
+        if min(c[kernel] for c in launches) <= 0 or (
+                label == "lbfgs"
+                and max(c[kernel] for c in launches) != got["trips"]):
+            raise AssertionError(f"(b) {label} launches: {launches}")
+        if label == "lbfgsb" and not bool(
+                ((got["x"] >= PARALLEL_BOX[0])
+                 & (got["x"] <= PARALLEL_BOX[1])).all()):
+            raise AssertionError("(b) lbfgsb left its box")
+        rows.append(row)
+    return rows
+
+
+def parallel_model_world_of_one(mods, mesh, n, dev, unsharded):
+    """Part (c) in this process's world of one at ``n``: the model-sharded
+    solve (timed, then under the collective log) and, with ``unsharded``,
+    the plain ``minimize`` it must equal bit for bit.  Returns the record
+    and the result's host summary."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch import parallel
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    cns = mods.cns
+    mobj = cns.objective(rosenbrock_view)
+    x0 = torch.full((n,), -1.2, dtype=torch.float64, device=dev)
+    row = {"n": n, "dtype": "float64", "ranks": 1, "backend": "nccl"}
+    if unsharded:
+        zero_launches(mods)
+        ref, row["unsharded_wall_s"] = timed_call(lambda: cns.minimize(
+            mobj, x0, cns.Lbfgs(m=M, two_loop_impl="xla")))
+        row["unsharded_launches"] = launch_counts(mods)
+        ref = host_summary(ref)
+
+    def solve():
+        return parallel.minimize_model_sharded(
+            mobj, x0, cns.Lbfgs(m=M), mesh=mesh, device=dev)
+
+    zero_launches(mods)
+    reads0 = any_lane.reads
+    res, row["wall_s"] = timed_call(solve)
+    row["reads"] = any_lane.reads - reads0
+    row["launches"] = launch_counts(mods)
+    got = host_summary(res)
+    del res
+    _, row["collectives"] = logged_call(solve)
+    its = int(got["iterations"])
+    row.update(iterations=its, nfev=int(got["nfev"]),
+               status=int(got["status"]), value=float(got["value"]),
+               reads_per_iteration=row["reads"] / max(its, 1),
+               all_reduces_per_iteration=sum(
+                   row["collectives"]["in_loop"].values()) / max(its, 1))
+    if unsharded:
+        row["bit_equal"] = same_bits(got, ref)
+    log(f"[parallel] (c) world of one, NCCL, n = {n} float64: "
+        f"{its} iterations, nfev {row['nfev']}, status {row['status']}, "
+        f"wall {row['wall_s']:.3f} s, {row['reads_per_iteration']:.2f} "
+        f"reads an iteration, collectives in the loop "
+        f"{row['collectives']['in_loop']}"
+        + (f"; bit-equal to the unsharded solve {row['bit_equal']} (its "
+           f"wall {row['unsharded_wall_s']:.3f} s)" if unsharded else ""))
+    bad = [k for k in row["collectives"]["in_loop"] if k != "all_reduce:1"]
+    if bad or any(row["launches"].values()) or (
+            unsharded and (not all(row["bit_equal"].values())
+                           or any(row["unsharded_launches"].values()))):
+        raise AssertionError(f"(c) n = {n}: {row}")
+    return row, got
+
+
+def parallel_model_pair_check(ranks, one) -> dict:
+    """Part (c) on two gloo ranks against the world of one at the same n."""
+    import numpy as np
+
+    got = ranks[0]["model"]["result"]
+    its = int(got["iterations"])
+    row = {"n": MODEL_PAIR_N, "dtype": "float64", "ranks": PARALLEL_RANKS,
+           "backend": "gloo", "iterations": its, "nfev": int(got["nfev"]),
+           "status": int(got["status"]),
+           "x_max_abs_diff": float((got["x"] - one["x"]).abs().max()),
+           "value_rel_diff": abs(float(got["value"]) - float(one["value"]))
+           / max(abs(float(one["value"])), 1e-300),
+           "wall_s_by_rank": [r["model"]["wall_s"] for r in ranks],
+           "reads_per_iteration": ranks[0]["model"]["reads"] / max(its, 1),
+           "launches_by_rank": [r["model"]["launches"] for r in ranks],
+           "collectives_by_rank": [r["model"]["collectives"]
+                                   for r in ranks]}
+    row["all_reduces_per_iteration"] = sum(
+        ranks[0]["model"]["collectives"]["in_loop"].values()) / max(its, 1)
+    same = (row["status"] == int(one["status"])
+            and row["nfev"] == int(one["nfev"])
+            and all(int(r["model"]["result"]["nfev"]) == row["nfev"]
+                    for r in ranks))
+    close = (row["x_max_abs_diff"] <= MODEL_XTOL
+             and np.isclose(float(got["value"]), float(one["value"]),
+                            rtol=MODEL_VALUE_RTOL, atol=1e-12))
+    bad = [k for r in ranks for k in r["model"]["collectives"]["in_loop"]
+           if k != "all_reduce:1"]
+    launched = [c for c in row["launches_by_rank"] if any(c.values())]
+    log(f"[parallel] (c) {PARALLEL_RANKS} gloo ranks on one card, n = "
+        f"{MODEL_PAIR_N} float64: {its} iterations, nfev {row['nfev']} "
+        f"(world of one {int(one['nfev'])}), status {row['status']}, |x - "
+        f"x1| {row['x_max_abs_diff']:.3e}, value rel diff "
+        f"{row['value_rel_diff']:.3e}, {row['all_reduces_per_iteration']:.1f}"
+        f" all-reduces an iteration, collectives in the loop "
+        f"{ranks[0]['model']['collectives']['in_loop']}")
+    if not (same and close) or bad or launched:
+        raise AssertionError(f"(c) two ranks: {row}")
+    return row
+
+
+def parallel_xla_alone(mods, dev) -> dict:
+    """Part (d); see XLA_SHAPE."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    stop32 = cns.default_stopping(torch.float32)
+    b, n = XLA_SHAPE
+    x0 = uniform_start(b, n, -2.0, 2.0, torch.float32, dev)
+    zero_launches(mods)
+    reads0 = any_lane.reads
+    res, wall = timed_call(lambda: cns.minimize_batched(
+        obj, x0, cns.Lbfgs(m=M, two_loop_impl="xla"), stop32))
+    launches = launch_counts(mods)
+    row = {"shape": [b, n], "dtype": "float32", "wall_s": wall,
+           "trips": res.trips, "reads": any_lane.reads - reads0,
+           "launches": launches,
+           "iterations": res.progress.num_iterations.tolist(),
+           "status": res.progress.status.tolist(),
+           "converged_share": converged_share(res, cns)}
+    try:
+        cns.minimize_batched(obj, x0, cns.Lbfgs(m=M), stop32)
+        row["auto_raised"] = None
+    except ValueError as e:
+        row["auto_raised"] = str(e)
+    log(f"[parallel] (d) Lbfgs(two_loop_impl='xla') at ({b}, {n}) float32: "
+        f"statuses {row['status']}, iterations {row['iterations']}, "
+        f"{res.trips} trips, wall {wall:.3f} s, launches "
+        f"{sum(launches.values())}; 'auto' raised: {row['auto_raised']}")
+    if any(launches.values()) or row["converged_share"] < 1.0 or not row[
+            "auto_raised"]:
+        raise AssertionError(f"(d): {row}")
+    return row
+
+
+def parallel_main(mods, dev) -> dict:
+    """The multi-device solves (the ``parallel_main`` phase): parts (a)-(d)
+    of the comment above PARALLEL_SHAPES, each raising on failure.  Part
+    (b)'s and (c)'s two ranks run first, as processes of their own; then
+    this process joins a world of one under NCCL (a ``FileStore`` under
+    ``build/``) for (a) and (c), and leaves it before (d).  Times of two
+    ranks sharing one card say nothing of scaling; they are kept only as
+    what they are."""
+    import torch
+    import torch.distributed as dist
+
+    from cppnumericalsolvers_tpu_torch import parallel
+
+    rec = {}
+    t0 = time.perf_counter()
+    ranks = run_parallel_ranks(os.path.join(ROOT, "build", "parallel_ranks"))
+    rec["ranks_s"] = time.perf_counter() - t0
+    store = os.path.join(ROOT, "build", f"parallel_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = parallel.make_mesh(axis="batch", device=dev)
+        model_mesh = parallel.make_mesh(axis="model", device=dev)
+        zero_launches(mods)
+        rec["a"] = [parallel_batch_world_of_one(mods, mesh, b, n, dev)
+                    for b, n in PARALLEL_SHAPES]
+        rec["c_world_of_one"], _ = parallel_model_world_of_one(
+            mods, model_mesh, MODEL_N, dev, unsharded=True)
+        rec["c_world_of_one_pair_n"], one = parallel_model_world_of_one(
+            mods, model_mesh, MODEL_PAIR_N, dev, unsharded=False)
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+    rec["b"] = parallel_pair_check(mods, ranks, dev)
+    rec["c_two_ranks"] = parallel_model_pair_check(ranks, one)
+    rec["d"] = parallel_xla_alone(mods, dev)
+    launches = {name: 0 for name in REPLACES}
+    for row in rec["a"]:
+        for name, count in row["launches"].items():
+            launches[name] += count
+    for r in ranks:
+        for label in ("lbfgs", "lbfgsb"):
+            for name, count in r[label]["launches"].items():
+                launches[name] += count
+    rec["launches"] = launches
+    return rec
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
     sys.exit(main())

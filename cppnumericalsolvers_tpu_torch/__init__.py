@@ -7,9 +7,11 @@ Armijo), the seven unconstrained solvers (L-BFGS, gradient descent,
 conjugate gradient, BFGS, Newton, trust-region Newton, Nelder-Mead),
 L-BFGS-B, the constrained layer (``ConstrainedProblem``, the penalty and
 augmented-Lagrangian composites, ``AugmentedLagrangian``), the
-finite-difference checkers (``utils``), and the drivers (``minimize``,
+finite-difference checkers (``utils``), the drivers (``minimize``,
 ``minimize_batched`` with warm start and trace, ``resume``, the
-Hessian-condition criterion).  Plain code is PyTorch; the kernels of the
+Hessian-condition criterion), and the multi-device solves (``parallel``:
+the batch split over ranks, or each instance's n over a model axis, on
+``torch.distributed``).  Plain code is PyTorch; the kernels of the
 batched solves (ops/csrc/*.cu: flat_trip, mt_trip, lbfgs_prologue,
 lbfgs_prologue_t, lbfgs_epilogue, push_two_loop, two_loop) are CUDA C++
 built at first use.  Entry points run on the card unless the caller passes
@@ -46,7 +48,7 @@ from .core import (
     resume,
     status_message,
 )
-from . import linesearch, models, ops, solvers, utils
+from . import linesearch, models, ops, parallel, solvers, utils
 from .solvers import (
     AugmentedLagrangian,
     Bfgs,
@@ -97,6 +99,7 @@ __all__ = [
     "models",
     "objective",
     "ops",
+    "parallel",
     "print_progress",
     "resume",
     "solvers",

@@ -18,6 +18,8 @@ from typing import Any
 
 import torch
 
+from .tree import lane_amax
+
 __all__ = ["IterationTrace", "init_trace", "record_trace", "print_progress"]
 
 
@@ -62,7 +64,7 @@ def record_trace(trace: IterationTrace, progress, state) -> IterationTrace:
     return IterationTrace(
         value=put(trace.value, state.value),
         gradient_norm=put(
-            trace.gradient_norm, torch.amax(torch.abs(state.gradient), -1)
+            trace.gradient_norm, lane_amax(torch.abs(state.gradient))
         ),
         x_delta=put(trace.x_delta, progress.x_delta),
         f_delta=put(trace.f_delta, progress.f_delta),

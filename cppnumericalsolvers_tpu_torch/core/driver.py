@@ -53,7 +53,7 @@ from .progress import (
     update_progress,
 )
 from .status import Status
-from .tree import any_lane, tree_map, tree_where
+from .tree import any_lane, lane_amax, tree_map, tree_where
 
 __all__ = [
     "SolverBase",
@@ -253,7 +253,7 @@ def _solve_loop_batched(
             callback({
                 "num_iterations": progress.num_iterations.clone(),
                 "value": state.value.clone(),
-                "gradient_norm": torch.amax(torch.abs(state.gradient), -1),
+                "gradient_norm": lane_amax(torch.abs(state.gradient)),
                 "x_delta": progress.x_delta.clone(),
                 "f_delta": progress.f_delta.clone(),
                 "status": progress.status.clone(),

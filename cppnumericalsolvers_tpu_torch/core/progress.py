@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from .status import Status
+from .tree import lane_amax
 
 __all__ = [
     "PAST_RING_SIZE",
@@ -200,11 +201,11 @@ def update_progress(
 
     num_iterations = progress.num_iterations + 1
     f_delta = torch.abs(value - prev_state.value)
-    x_delta = torch.amax(torch.abs(cur_state.x - prev_state.x), dim=-1)
+    x_delta = lane_amax(torch.abs(cur_state.x - prev_state.x))
     if mode == "none":
         gradient_norm = torch.zeros_like(value)
     else:
-        gradient_norm = torch.amax(torch.abs(cur_state.gradient), dim=-1)
+        gradient_norm = lane_amax(torch.abs(cur_state.gradient))
 
     if condition_hessian is None:
         cond_h = torch.zeros_like(value)
@@ -298,7 +299,7 @@ def update_progress(
     if mode != "none":
         if crit.gradient_norm_relative:
             scale = torch.maximum(
-                one, torch.amax(torch.abs(cur_state.x), dim=-1)
+                one, lane_amax(torch.abs(cur_state.x))
             )
         else:
             scale = one
@@ -350,7 +351,7 @@ def update_progress_constrained(
     tests apply.  Works on any leading batch dimensions."""
     num_iterations = progress.num_iterations + 1
     f_delta = torch.abs(cur_value - prev_value)
-    x_delta = torch.amax(torch.abs(cur_x - prev_x), dim=-1)
+    x_delta = lane_amax(torch.abs(cur_x - prev_x))
 
     status = torch.full_like(progress.status, int(Status.CONTINUE))
     status = _first(

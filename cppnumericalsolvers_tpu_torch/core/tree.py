@@ -8,11 +8,26 @@ Python values; these helpers walk them as ``jax.tree.map`` walks a pytree.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
-__all__ = ["any_lane", "masked_while", "tree_map", "tree_where"]
+__all__ = [
+    "any_lane",
+    "lane_amax",
+    "lane_sum",
+    "masked_while",
+    "model_axis_group",
+    "tree_map",
+    "tree_where",
+]
+
+#: The process group over which a lane's n-vector is sharded, set only by
+#: ``parallel.minimize_model_sharded`` through :func:`model_axis_group`;
+#: None everywhere else.
+_MODEL_GROUP = None
 
 
 def tree_map(fn, tree, *rest):
@@ -69,3 +84,48 @@ def masked_while(cond, body, carry, live):
         if not any_lane(active):
             return carry
         carry = tree_where(active, body(carry, active), carry)
+
+
+@contextlib.contextmanager
+def model_axis_group(group):
+    """Within this context every lane's n-vector is sharded over the ranks
+    of ``group`` (a ``torch.distributed`` process group): :func:`lane_sum`
+    and :func:`lane_amax` follow their local reduction with an
+    ``all_reduce`` over it, and the More-Thuente search takes its plain
+    trip, whose directional derivative is a :func:`lane_sum` (the
+    ``mt_trip`` kernel reduces over the local shard only)."""
+    global _MODEL_GROUP
+    outer, _MODEL_GROUP = _MODEL_GROUP, group
+    try:
+        yield
+    finally:
+        _MODEL_GROUP = outer
+
+
+def model_group():
+    """The process group of the enclosing :func:`model_axis_group`, or
+    None."""
+    return _MODEL_GROUP
+
+
+def lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(x, -1)``: a per-lane sum over the n axis (a dot product
+    is ``lane_sum(a * b)``).  Inside :func:`model_axis_group` the local sums
+    are then summed over the group by one ``all_reduce``."""
+    s = torch.sum(x, dim=-1)
+    if _MODEL_GROUP is not None:
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
+    return s
+
+
+def lane_amax(x: torch.Tensor) -> torch.Tensor:
+    """``torch.amax(x, -1)`` of non-negative values ``x`` (magnitudes): a
+    per-lane infinity norm over the n axis.  Inside
+    :func:`model_axis_group` the local maxima (0 on a rank whose shard is
+    empty) are then maximised over the group by one ``all_reduce``."""
+    if _MODEL_GROUP is None:
+        return torch.amax(x, dim=-1)
+    s = (torch.amax(x, dim=-1) if x.shape[-1]
+         else x.new_zeros(x.shape[:-1]))
+    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=_MODEL_GROUP)
+    return s

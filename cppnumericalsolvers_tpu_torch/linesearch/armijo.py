@@ -19,7 +19,7 @@ import dataclasses
 
 import torch
 
-from ..core.tree import masked_while
+from ..core.tree import lane_sum, masked_while
 
 __all__ = ["armijo", "ArmijoResult"]
 
@@ -59,7 +59,7 @@ def armijo(
     one, as in the JAX package."""
     dtype = f0.dtype
     b = x.shape[0]
-    cache = _C * torch.sum(g0 * direction, dim=-1)
+    cache = _C * lane_sum(g0 * direction)
     if curvature_term is not None:
         cache = cache + 0.5 * _C * _C * curvature_term.to(dtype)
         alpha_floor = 0.0

@@ -18,6 +18,7 @@ import dataclasses
 
 import torch
 
+from ..core.tree import lane_sum
 from .armijo import armijo
 from .hager_zhang import hager_zhang
 from .more_thuente import DEFAULT_MAX_FEV
@@ -55,6 +56,7 @@ def run_line_search(
     *,
     active=None,
     batched_value=None,
+    plain: bool = False,
 ) -> LineSearchResult:
     """Run the named search along ``direction`` ``(B, n)`` from a populated
     batched start.
@@ -65,15 +67,17 @@ def run_line_search(
     Hager-Zhang and Armijo loops; More-Thuente leaves out the lanes whose
     ``dginit`` is not negative by its own rule.  ``batched_value`` maps
     ``(B, n) -> (B,)`` for Armijo's value-only trials; without it they take
-    the value of ``batched_value_and_grad``."""
+    the value of ``batched_value_and_grad``.  ``plain`` runs More-Thuente's
+    trips in plain PyTorch (``mt_trip_reference``), no kernel, on any
+    device."""
     if method == "more_thuente":
         from ..ops.fused_linesearch import batched_more_thuente
 
         if dginit is None:
-            dginit = torch.sum(g0 * direction, dim=-1)
+            dginit = lane_sum(g0 * direction)
         x, f, g, alpha, nfev, _info, trips = batched_more_thuente(
             batched_value_and_grad, x0, f0, g0, direction, alpha_init,
-            dginit, max_fev=max_fev,
+            dginit, max_fev=max_fev, plain=plain,
         )
         return LineSearchResult(x=x, f=f, g=g, alpha=alpha, nfev=nfev,
                                 trips=trips)

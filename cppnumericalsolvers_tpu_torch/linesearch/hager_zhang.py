@@ -33,8 +33,7 @@ import dataclasses
 
 import torch
 
-from ..core.tree import masked_while
-from ..core.tree import tree_where
+from ..core.tree import lane_sum, masked_while, tree_where
 
 __all__ = ["hager_zhang", "HagerZhangResult"]
 
@@ -126,7 +125,7 @@ def hager_zhang(
         torch.as_tensor(alpha_init, dtype=dtype, device=dev), (bsz,))
 
     phi_0 = f0
-    dphi_0 = torch.sum(g0 * s, dim=-1)
+    dphi_0 = lane_sum(g0 * s)
     phi_lim = phi_0 + _EPSILON_K * torch.abs(phi_0)
     trips = 0
 
@@ -134,7 +133,7 @@ def hager_zhang(
         nonlocal trips
         f, g = batched_value_and_grad(x0 + alpha[:, None] * s)
         trips += 1
-        return _Trip(alpha=alpha, phi=f, dphi=torch.sum(g * s, dim=-1),
+        return _Trip(alpha=alpha, phi=f, dphi=lane_sum(g * s),
                      g=g), nfev + 1
 
     def finite(t: _Trip):

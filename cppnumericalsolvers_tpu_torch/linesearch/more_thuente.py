@@ -20,6 +20,8 @@ import dataclasses
 
 import torch
 
+from ..core.tree import lane_sum
+
 __all__ = [
     "CstepState",
     "MoreThuenteResult",
@@ -370,7 +372,7 @@ def more_thuente(
     from ..ops.fused_linesearch import batched_more_thuente
 
     if dginit is None:
-        dginit = torch.sum(g0 * direction)
+        dginit = lane_sum(g0 * direction)
 
     def batched(x):
         f, g = value_and_grad(x[0])

@@ -36,7 +36,7 @@ import dataclasses
 
 import torch
 
-from ..core.tree import any_lane
+from ..core.tree import any_lane, lane_sum, model_group
 from ..linesearch.more_thuente import (
     _FTOL,
     _STPMAX,
@@ -100,7 +100,7 @@ class SearchState:
 
 
 def _rdot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return lane_sum(a * b)
 
 
 def init_search(x0, f0, g0, direction, alpha_init, dginit,
@@ -237,12 +237,16 @@ def batched_more_thuente(
     alpha_init,
     dginit,
     max_fev: int = DEFAULT_MAX_FEV,
+    plain: bool = False,
 ):
     """Strong-Wolfe search of every lane of a batch along ``direction``
     ``(B, n)`` from the populated start ``(x0, f0, g0)``, with ``dginit`` the
     directional derivatives ``g0 . direction``.
 
-    Every trip is one :func:`mt_trip` call.  Returns
+    Every trip is one :func:`mt_trip` call; with ``plain``, and inside
+    ``core.tree.model_axis_group`` (where the kernel's directional
+    derivative would cover one rank's shard only), one
+    :func:`mt_trip_reference` call on any device.  Returns
     ``(x, f, g, alpha, nfev, info, trips)``: the accepted point of each lane
     with the evaluations it took and its MINPACK code, and the number of
     loop trips (batched evaluations).  A lane that aborts before its first
@@ -252,10 +256,12 @@ def batched_more_thuente(
     dtype = x0.dtype
     st = init_search(x0, f0, g0, direction, alpha_init, dginit, max_fev)
     trips = 0
+    trip = (mt_trip_reference if plain or model_group() is not None
+            else mt_trip)
     # One device-to-host read per trip: the any-lane-searching predicate.
     while any_lane(st.si[:, _I_INFO] == 0):
         f_t, g_t = batched_value_and_grad(st.x_trial)
-        mt_trip(x0, direction, f_t.to(dtype).contiguous(),
+        trip(x0, direction, f_t.to(dtype).contiguous(),
                 g_t.to(dtype).contiguous(), st, max_fev)
         trips += 1
     nfev = st.si[:, _I_NFEV].clone()

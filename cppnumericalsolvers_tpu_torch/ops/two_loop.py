@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tree import lane_sum
 from ._kernel import check_args, check_float, lane_mapping, launch
 
 __all__ = [
@@ -46,7 +47,7 @@ __all__ = [
 
 
 def _rdot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return lane_sum(a * b)
 
 
 def push_gate(mem_count, gamma, s_new, y_new, valid, m):
@@ -237,7 +238,7 @@ def search_direction(x, gradient, d, mem_count):
     caller resets), the first step (1/|d| with no curvature history, else
     1; 1/|g| on the fallback) and ``gradient . ls_dir``."""
     eps = torch.finfo(gradient.dtype).eps
-    one = torch.ones_like(d[:, 0])
+    one = d.new_ones(d.shape[:-1])
     relative_eps = eps * torch.maximum(one, torch.sqrt(_rdot(x, x)))
     descent = -_rdot(gradient, d)
     direction_norm = torch.sqrt(_rdot(d, d))

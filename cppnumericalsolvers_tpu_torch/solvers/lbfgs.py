@@ -23,8 +23,16 @@ batched solves.  Two loops serve it, as in the JAX package:
   - :meth:`Lbfgs.step`: the generic step (``lbfgs_push_and_direction``, the
     descent check, the search, the guards in plain PyTorch), for what the
     fused steps do not cover: the Hessian-condition criterion, which the
-    loop evaluates between step and convergence test, and the
-    Hessian-diagonal preconditioner.
+    loop evaluates between step and convergence test, the
+    Hessian-diagonal preconditioner, and ``two_loop_impl="xla"``.
+
+``Lbfgs(two_loop_impl="xla")`` is the port's counterpart of the JAX
+package's pure-XLA lowering: the generic step in plain PyTorch, with the
+push, the two-loop and the More-Thuente trips in their plain versions
+(``push_history``, ``two_loop_direction_reference``, ``mt_trip_reference``),
+on any device and at any n, launching no kernel.  The model-sharded solve
+(``parallel.minimize_model_sharded``) sets it, since its reductions span
+ranks.
 
 All return :class:`LbfgsInternals`, chronological and batch-major:
 ``(B, m, n)`` with row 0 the oldest correction.
@@ -38,6 +46,7 @@ import torch
 
 from ..core.driver import MinimizeResult, SolverBase
 from ..core.objective import FunctionState
+from ..core.tree import lane_amax
 from ..linesearch.dispatch import run_line_search
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.flat_solve import flat_lbfgs_solve
@@ -50,6 +59,7 @@ from ..ops.fused_step_t import (
 )
 from ..ops.two_loop import (
     lbfgs_push_and_direction,
+    lbfgs_push_and_direction_reference,
     push_history,
     search_direction,
     two_loop_direction,
@@ -109,6 +119,11 @@ class Lbfgs(SolverBase):
     use_hessian_preconditioner: bool = False
     max_linesearch_fev: int = DEFAULT_MAX_FEV
     line_search: str = "more_thuente"
+    #: "auto": the kernels (the flat solve, prologue/epilogue, the fused
+    #: push and two-loop, ``mt_trip``) on CUDA tensors; "xla": their plain
+    #: versions on any device, through the generic step (the JAX package's
+    #: pure-XLA lowering, which its model-sharded solve forces).
+    two_loop_impl: str = "auto"
 
     #: Largest n, and least batch, that the iteration-granular loop runs on
     #: the batch-minor history.  0 routes nothing there: on an NVIDIA H100
@@ -126,13 +141,22 @@ class Lbfgs(SolverBase):
         default=True, init=False, repr=False
     )
 
+    def __post_init__(self):
+        if self.two_loop_impl not in ("auto", "xla"):
+            raise ValueError(
+                f"two_loop_impl must be 'auto' or 'xla', got "
+                f"{self.two_loop_impl!r}"
+            )
+
     def supports_fused_update(self, objective) -> bool:
         """Whether :meth:`step_and_update` may stand in for :meth:`step` +
         the convergence test + the freeze of done lanes: every
         configuration but the Hessian-diagonal preconditioner, which needs
-        an objective transform inside the step."""
+        an objective transform inside the step, and ``two_loop_impl="xla"``,
+        which runs no kernel."""
         del objective
-        return not self.use_hessian_preconditioner
+        return (self.two_loop_impl == "auto"
+                and not self.use_hessian_preconditioner)
 
     def supports_solve_batched(self, objective) -> bool:
         """Whether a fresh solve without a trace takes the flat solve: the
@@ -281,6 +305,7 @@ class Lbfgs(SolverBase):
             max_fev=self.max_linesearch_fev, dginit=dginit, active=active,
             batched_value=(objective.batched_value
                            if self.line_search == "armijo" else None),
+            plain=self.two_loop_impl == "xla",
         )
 
     def step(self, objective, state, internals: LbfgsInternals, stopping,
@@ -327,6 +352,14 @@ class Lbfgs(SolverBase):
             )
             direction = two_loop_direction_reference(
                 gradient, s_memory, y_memory, mem_count, gamma, precond)
+        elif self.two_loop_impl == "xla":
+            direction, s_memory, y_memory, mem_count, gamma = (
+                lbfgs_push_and_direction_reference(
+                    gradient.contiguous(), it.s_memory, it.y_memory,
+                    it.mem_count, it.gamma, it.s_pending,
+                    it.y_pending, pending_valid,
+                )
+            )
         else:
             # Append the previous step's pair (curvature-gated,
             # lbfgs.h:253-298) and compute the direction (lbfgs.h:141-196).
@@ -365,7 +398,7 @@ class Lbfgs(SolverBase):
         # Stall recovery: a search that could not move x would repeat the
         # same failing direction; clearing the history makes the next step
         # steepest descent with a fresh step length.
-        stalled = torch.amax(torch.abs(s), dim=-1) <= 0.0
+        stalled = lane_amax(torch.abs(s)) <= 0.0
         mem_count = torch.where(stalled, torch.zeros_like(mem_count),
                                 mem_count)
 

@@ -121,11 +121,12 @@ def test_min_and_max_zero_split_the_gradient_at_the_kink(name):
 
 @pytest.mark.parametrize("args", [
     (), (10,), (10, True), (5, False, 7), (3, True, 11, "more_thuente"),
+    (3, False, 11, "armijo", "xla"), (4, False, 20, "more_thuente", "auto"),
 ])
 def test_lbfgs_positional_fields_match_jax(args):
     mine, theirs = cns.Lbfgs(*args), JaxLbfgs(*args)
     for field in ("m", "use_hessian_preconditioner", "max_linesearch_fev",
-                  "line_search"):
+                  "line_search", "two_loop_impl"):
         assert getattr(mine, field) == getattr(theirs, field), field
 
 
