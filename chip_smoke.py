@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Eight paths, the first four through ``minimize_batched(objective, x0_batch,
+Nine paths, the first four through ``minimize_batched(objective, x0_batch,
 Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
-solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the last
-through the multi-device solves of ``parallel``:
+solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the
+seventh through the multi-device solves of ``parallel``, the last through
+the bench's calibrations:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -40,11 +41,16 @@ through the multi-device solves of ``parallel``:
   ranks sharing the card (``chip_smoke.py --parallel-rank``, processes of
   their own); ``minimize_model_sharded`` on ``Lbfgs(two_loop_impl="xla")``,
   which runs no kernel, at n = 4,194,304 and 1,048,576 float64; and
-  ``two_loop_impl="xla"`` alone beyond the kernels' reach.
+  ``two_loop_impl="xla"`` alone past the reach of q in shared memory, where
+  the default ``"auto"`` runs ``flat_trip`` with q in device memory;
+* the calibrations of ``benchmarks_torch/roofline.py`` (``floors_main``):
+  the trip floor, whose loop launches ``trip_floor`` once a trip, and the
+  launch floor, whose chains launch ``launch_floor`` from the host and in a
+  CUDA graph.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
-1. build   compile the seven sources of ``ops/csrc/`` with nvcc for sm_90a,
+1. build   compile the nine sources of ``ops/csrc/`` with nvcc for sm_90a,
            all at once, load them, and print each kernel's registers,
            spills and stack frame (ptxas -v);
 2. card    print the card's name and power limit (nvidia-smi);
@@ -64,9 +70,12 @@ Phases (each raises on failure, so the script then exits non-zero):
            every launch plan the solves do not take.  The fused push and
            the epilogue on made-up inputs at every mapping they take (the
            epilogue also under every mapping forced at each shape, all of
-           which must give the same bits).  Reach: flat and warm-started
-           nested solves cut at 10 and 30 iterations at (64, 16384), where
-           the history rows are read in place, float64 held to the exact
+           which must give the same bits; the fused push and the bare
+           two-loop also with q in device memory, bit for bit).  Reach:
+           flat and warm-started nested solves cut at 10 and 30 iterations
+           at (64, 16384), where the history rows are read in place (and
+           again with q in device memory, bit for bit), and at (8, 65,536),
+           where q is in device memory, float64 held to the exact
            short-budget contract (iterates within 1e-12 at 10 iterations;
            at 30 their distance is recorded beside the plain version's
            against itself summed in another order).  Drift: at one shape
@@ -99,7 +108,11 @@ Phases (each raises on failure, so the script then exits non-zero):
            (``parallel_main``, parts (a)-(d) of the comment above
            PARALLEL_SHAPES): bit-equality with the unsharded solves,
            launch counts, the collectives inside each loop and after it
-           (``parallel.comm.CollectiveLog``), walls and reads;
+           (``parallel.comm.CollectiveLog``), walls and reads; L-BFGS-B
+           and the dense solvers block against whole batch (part (b)).
+           The calibration kernels (``floors_main``): bit-equal to their
+           plain versions after one launch and after a trip loop's or a
+           chain's length, timed, then the two calibrations run once;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
@@ -180,12 +193,18 @@ PATH_B_FACTOR = 100.0
 # last-bit difference in x flips the test: kernel and plain-version solves
 # agreed on 71% of lanes' statuses in float32 with mean nfev 0.004 apart.
 PATH_B_DTYPE = {(1024, 32): "float32", (1024, 256): "float64"}
+# Past the reach of q in shared memory (n > 28,760 in float64, 57,816 in
+# float32 at m = 10) the history kernels keep q in device memory
+# (ROWS_DEVICE_Q): the reach phase, the fused push and the bare two-loop
+# are held to their plain versions there too.
+DEVICE_Q_SHAPE = (8, 65536)
 # Made-up inputs for the two-loop kernels, which need no Hessian.  The
 # fused push is also held where a warp holds two elements a thread with a
-# ragged last block (1000, 60) and where its rows are read in place
-# (64, 16384).
+# ragged last block (1000, 60), where its rows are read in place
+# (64, 16384) and where q is in device memory too (DEVICE_Q_SHAPE).
 PUSH_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (256, 4096)]
-PUSH_PARITY_SHAPES = PUSH_SHAPES + [(1000, 60), (64, 16384)]
+PUSH_PARITY_SHAPES = PUSH_SHAPES + [(1000, 60), (64, 16384),
+                                    DEVICE_Q_SHAPE]
 # The epilogue on made-up inputs where each of its mappings is taken: a
 # warp per lane (one and two elements a thread, a ragged last block), a
 # block per lane with 16-byte units and with single values (n % 4 != 0),
@@ -208,12 +227,13 @@ REACH_CUT = 30
 TWO_LOOP_SHAPES = [(1024, 32), (1024, 1024), (256, 4096)]
 # The bare two-loop is also held where a warp holds two elements a thread
 # with a ragged last block (1000, 60), where a block streams its rows
-# through the ring at a ragged n (1024, 100) and where it reads them in
-# place (64, 16384); at
-# every shape each other row mode is forced too, and every one must give
-# the shipped mapping's bits, as must push_two_loop with valid off.
+# through the ring at a ragged n (1024, 100), where it reads them in
+# place (64, 16384) and where q is in device memory too (DEVICE_Q_SHAPE);
+# at every shape each other row mode that fits is forced too (q in device
+# memory fits wherever a block holds a lane), and every one must give the
+# shipped mapping's bits, as must push_two_loop with valid off.
 TWO_LOOP_PARITY_SHAPES = TWO_LOOP_SHAPES + [(1000, 60), (1024, 100),
-                                            (64, 16384)]
+                                            (64, 16384), DEVICE_Q_SHAPE]
 # The bare two-loop's float outputs also element by element: the tolerance
 # of tests/test_torch_two_loop.py against JAX's kernel in float32.
 TWO_LOOP_ELEMENT_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
@@ -224,43 +244,15 @@ TWO_LOOP_ELEMENT_TOL = {"float32": dict(rtol=2e-4, atol=2e-5),
 # (bench.py:46, the reference's own figure).
 SUITE_STATUS_AGREEMENT = {"float64": 1.0, "float32": 0.99}
 SUITE_CONVERGED_MIN = 0.95
-# The other unconstrained solvers and searches (solvers_main), at bench.py's
-# solver-leg shapes: (label, class, arguments, (B, n), objective mode,
-# conservative preset, float32 iteration cut (0: none), kernels the path
-# launches).  Gradient descent, conjugate gradient and Nelder-Mead are cut
-# (PERF.md §4): gradient descent takes about 4,000 iterations to its end,
-# and conjugate gradient's Armijo search backtracks up to ~100 times an
-# iteration on some lane of 1024.
-SOLVER_RUNS = [
-    ("bfgs", "Bfgs", {}, (1024, 32), "first", False, 0, ("mt_trip",)),
-    ("bfgs", "Bfgs", {}, (256, 256), "first", False, 0, ("mt_trip",)),
-    ("newton", "NewtonDescent", {}, (1024, 32), "second", False, 0, ()),
-    ("newton", "NewtonDescent", {}, (256, 64), "second", False, 0, ()),
-    ("lbfgs_hz", "Lbfgs", {"m": 10, "line_search": "hager_zhang"},
-     (1024, 32), "first", False, 0, ("lbfgs_prologue", "lbfgs_epilogue")),
-    ("lbfgs_armijo", "Lbfgs", {"m": 10, "line_search": "armijo"},
-     (1024, 32), "first", False, 0, ("lbfgs_prologue", "lbfgs_epilogue")),
-    ("gd", "GradientDescent", {}, (1024, 32), "first", True, 300,
-     ("mt_trip",)),
-    ("cg", "ConjugateGradientDescent", {}, (1024, 32), "first", True, 100,
-     ()),
-    ("tr", "TrustRegionNewton", {}, (256, 64), "second", False, 0, ()),
-    ("tr_hessian_free", "TrustRegionNewton", {"hessian_free": True},
-     (256, 64), "first", False, 0, ()),
-    ("nm", "NelderMead", {}, (1024, 8), "first", False, 200, ()),
-]
-# The constrained layer (constrained_main): bench.py's L-BFGS-B legs
-# (bench.py:435-442; the box pins every odd coordinate at 0.9, so the Cauchy
-# walk crosses real breakpoints), the same with a box per lane, bench.py's
-# AL leg (bench.py:468-512: 64 lanes at n = 4096, 10 outer iterations of at
-# most 40 inner ones) and examples/constrained.py's two problems from 64
-# starts with L-BFGS-B inside; the checkers at n = 32 and 64.
-LBFGSB_RUNS = [("box", (1024, 32)), ("box", (256, 256)),
-               ("lane_boxes", (1024, 32))]
-LBFGSB_BOX = (-2.0, 0.9)
-LANE_BOXES = ((-2.0, 0.9), (-1.5, 1.5))
-AL_LEG = (64, 4096)
-AL_LEG_BUDGET = (10, 40)
+# The other unconstrained solvers and searches (solvers_main) at bench.py's
+# solver-leg shapes, and the constrained layer's legs (constrained_main):
+# benchmarks_torch/legs.py holds their tables, shared with bench_torch.py.
+# constrained_main also runs examples/constrained.py's two problems from 64
+# starts with L-BFGS-B inside, and the checkers at n = 32 and 64.
+from benchmarks_torch.legs import (  # noqa: E402
+    AL_LEG, AL_LEG_BUDGET, LANE_BOXES, LBFGSB_BOX, LBFGSB_RUNS, SOLVER_RUNS,
+    al_leg_problem)
+
 AL_EXAMPLE_STARTS = 64
 AL_EXAMPLE_BOX = (-3.0, 3.0)
 CONSTRAINED_SHORT_LBFGSB = 5     # iterations of the float64 comparisons
@@ -309,6 +301,8 @@ REPLACES = {
     "lbfgs_prologue_t": "cppnumericalsolvers_tpu/ops/fused_step_t.py:103",
     "push_two_loop": "cppnumericalsolvers_tpu/ops/two_loop.py:658",
     "two_loop": "cppnumericalsolvers_tpu/ops/two_loop.py:232",
+    "trip_floor": "benchmarks/roofline.py:560",
+    "launch_floor": "benchmarks/roofline.py:640",
 }
 # Float outputs: |kernel - plain| <= RTOL * scale, where scale is the
 # largest magnitude in the lane's vector (or the scalar itself).  The kernel
@@ -332,16 +326,25 @@ F32_MISMATCH_SHARE = 1e-3
 #     NCCL refuses two ranks on one GPU): L-BFGS at (1024, 32) and
 #     __graft_entry__.py's Lbfgsb(m=5, lower=0.5, upper=4.0) case from
 #     starts in [1, 3] at the same shape, bit-equal to this process's solve
-#     of each rank's block of lanes;
+#     of each rank's block of lanes; L-BFGS-B (status, nfev, x) bit-equal
+#     per lane to the whole batch solved here, after one iteration and on
+#     full solves, in float32 and float64, at that shape and at
+#     BLOCK_PAIR_SHAPE (few lanes, long rows) as two blocks against the
+#     whole (there the first iteration is held by the full solves' trace);
+#     BFGS and the trust region the same at their solver-leg shapes (one
+#     iteration in both precisions), Newton recorded (its batched solve is
+#     a library call); see block_checks;
 # (c) minimize_model_sharded on the view-form extended Rosenbrock from
 #     x = -1.2, float64, Lbfgs(m=10): at n = 4,194,304 in a world of one,
 #     bit-equal to the unsharded Lbfgs(two_loop_impl="xla") solve; at n =
 #     1,048,576 on two gloo ranks, status and nfev equal to the world of
 #     one at that n, x within MODEL_XTOL, the value within MODEL_VALUE_RTOL
 #     (tests/test_model_sharded.py's tolerances);
-# (d) Lbfgs(two_loop_impl="xla") alone at (4, 65,536) float32, beyond the
-#     history kernels' reach: no launch, a convergence status; "auto"
-#     raises there.
+# (d) Lbfgs(two_loop_impl="xla") alone at (4, 65,536) float32, past the
+#     reach of q in shared memory: no launch, a convergence status; the
+#     default "auto" runs the flat solve's kernel there (q in device
+#     memory), one launch a trip, every lane on a convergence status (its
+#     statuses and x distance to "xla" recorded).
 PARALLEL_SHAPES = [(8192, 32), (1024, 1024)]
 PARALLEL_PAIR_SHAPE = (1024, 32)
 PARALLEL_BOX = (0.5, 4.0)
@@ -351,10 +354,20 @@ MODEL_PAIR_N = 1_048_576
 MODEL_XTOL = 1e-8
 MODEL_VALUE_RTOL = 1e-10
 XLA_SHAPE = (4, 65536)
+BLOCK_PAIR_SHAPE = (8, 4096)
+#: Part (b)'s dense solvers, by label in SOLVER_RUNS; Newton's is recorded,
+#: not asserted.
+BLOCK_DENSE = ("bfgs", "newton", "tr")
 PARALLEL_RANKS = 2
 PARALLEL_RANK_TIMEOUT = 400
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
+# The calibration kernels (floors_main): launches each kernel is held to its
+# plain version after (a trip loop's length, the launch chain's longer
+# length), and the launches of each spin-padded timing run.
+FLOOR_CHAIN = {"trip_floor": 900, "launch_floor": 1800}
+FLOOR_TIMED_LAUNCHES = 200
+FLOOR_TIMED_PLAIN_CALLS = 50
 # Where each float32 kernel's drift from the exact answer is measured
 # (float64 plain version on the same inputs upcast): the flat trip's
 # direction, the prologues', the fused push's direction, the epilogue's
@@ -384,6 +397,7 @@ class Mods:
         import cppnumericalsolvers_tpu_torch as cns
         from cppnumericalsolvers_tpu_torch.ops import _build, _kernel
         from cppnumericalsolvers_tpu_torch.ops import flat_solve as fs
+        from cppnumericalsolvers_tpu_torch.ops import floors
         from cppnumericalsolvers_tpu_torch.ops import fused_linesearch as fl
         from cppnumericalsolvers_tpu_torch.ops import fused_step as fstep
         from cppnumericalsolvers_tpu_torch.ops import fused_step_t as ft
@@ -393,6 +407,8 @@ class Mods:
 
         self.cns, self.build, self.fs, self.fl = cns, _build, fs, fl
         self.lbb = lbb
+        #: The calibration kernels' wrappers and plain versions.
+        self.floors = floors
         self.K = _kernel
         self.fstep, self.ft, self.tl, self.lb = fstep, ft, tl, lb
         #: Every kernel wrapper but ``flat_trip`` (each counts its launches)
@@ -623,10 +639,17 @@ def main() -> int:
         log(f"[parity] nested {dname} ({b}, {n}) edge lanes covered: "
             + json.dumps(cover))
         check_cover(cover, b, n, edge=True)
-        t0 = time.perf_counter()
-        r = reach_parity(mods, obj, start(*REACH_SHAPE, dtype), dname)
-        r["seconds"] = time.perf_counter() - t0
-        record[f"reach_parity_{dname}"] = r
+        for key, shape in (("reach_parity", REACH_SHAPE),
+                           ("device_q_parity", DEVICE_Q_SHAPE)):
+            t0 = time.perf_counter()
+            r = reach_parity(mods, obj, start(*shape, dtype), dname)
+            r["seconds"] = time.perf_counter() - t0
+            record[f"{key}_{dname}"] = r
+            rows = {k: m["rows"] for k, m in r["mappings"].items()
+                    if k in ("flat_trip", "lbfgs_prologue")}
+            if (shape == DEVICE_Q_SHAPE) != all(
+                    v == mods.K.ROWS_DEVICE_Q for v in rows.values()):
+                raise AssertionError(f"reach ({shape}) {dname}: rows {rows}")
     record["drift"] = {name: d.result() for name, d in drift.items()}
     for name, r in record["drift"].items():
         log(f"[drift] {name} float32 {tuple(r['shape'])}: relative "
@@ -776,6 +799,15 @@ def main() -> int:
     log(f"[main] parallel: {record['parallel_phase_s']:.1f} s "
         f"(ranks {record['parallel']['ranks_s']:.1f} s)")
 
+    t0 = time.perf_counter()
+    record["floors"] = floors_main(mods, dev)
+    for name, count in record["floors"]["launches"].items():
+        main_launches[name] += count
+    for name, k in record["floors"]["kernels"].items():
+        max_abs_err[name] = max(max_abs_err[name], k["max_abs_err"])
+    record["floors_phase_s"] = time.perf_counter() - t0
+    log(f"[main] floors: {record['floors_phase_s']:.1f} s")
+
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
         b, n = row["shape"]
@@ -845,6 +877,7 @@ def main() -> int:
     for name, rows in op_rows.items():
         timed[name] = next(
             r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
+    timed.update(record["floors"]["kernels"])
     kernels = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -856,8 +889,8 @@ def main() -> int:
         "plain_ms": timed[name]["plain_ms"],
         "bound_ms": timed[name]["bound_ms"],
         "bound_by": timed[name]["bound_by"],
-        "library_ms": None,
-        "shape": list(HEADLINE_SHAPE),
+        "library_ms": timed[name].get("library_ms"),
+        "shape": timed[name].get("shape", list(HEADLINE_SHAPE)),
         "dtype": "float32",
     } for name in REPLACES]}
     for k in kernels["kernels"]:
@@ -1285,10 +1318,12 @@ def reach_parity(mods, obj, x0, dname) -> dict:
     1e-12 at the short one; at the long one the largest iterate distance
     is recorded beside that of the plain flat solve against itself with
     its dot products summed in another order.  float32: the main path's
-    tolerances (statuses equal on 99% of lanes, mean nfev within 3)."""
+    tolerances (statuses equal on 99% of lanes, mean nfev within 3).  Where
+    the shipped mode reads the rows in place with q in shared memory, the
+    short solves are run again with q in device memory, bit for bit."""
     import torch
 
-    cns, fs = mods.cns, mods.fs
+    cns, fs, K = mods.cns, mods.fs, mods.K
     b, n = x0.shape
     solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
     want = ("flat_trip", "lbfgs_prologue", "mt_trip", "lbfgs_epilogue")
@@ -1326,6 +1361,23 @@ def reach_parity(mods, obj, x0, dname) -> dict:
             p_warm = cns.minimize_batched(obj, flat.state.x, solver, stop,
                                           internals=flat.internals)
         held = dname == "float64" and cut == REACH_SHORT_CUT
+        if cut == REACH_SHORT_CUT and all(
+                row["mappings"][k]["rows"] == K.ROWS_DIRECT
+                for k in ("flat_trip", "lbfgs_prologue")):
+            # q in device memory must give the shipped mode's bits.
+            with forced_rows(K, "flat_trip", K.ROWS_DEVICE_Q), \
+                    forced_rows(K, "lbfgs_prologue", K.ROWS_DEVICE_Q):
+                q_flat = cns.minimize_batched(obj, x0, solver, stop)
+                q_warm = cns.minimize_batched(obj, q_flat.state.x, solver,
+                                              stop, internals=q_flat.internals)
+            row["device_q_bits"] = {
+                "flat": same_bits(host_summary(q_flat), host_summary(flat)),
+                "warm": same_bits(host_summary(q_warm), host_summary(warm))}
+            log(f"[parity] reach ({b}, {n}) {dname}: flat and warm solves "
+                "with q in device memory bit-equal to the shipped mode "
+                f"{row['device_q_bits']}")
+            if not all(all(v.values()) for v in row["device_q_bits"].values()):
+                raise AssertionError(f"reach ({b}, {n}) {dname}: {row}")
         for label, k, p in (("flat", flat, p_flat), ("warm", warm, p_warm)):
             pairs = {"status": (k.progress.status, p.progress.status),
                      "nfev": (k.state.nfev, p.state.nfev),
@@ -1840,7 +1892,10 @@ def timing(fs, obj, x0, stop) -> dict:
             trip = fs.flat_trip if which == "kernel" else fs.flat_trip_reference
             runs.setdefault((which, device_time), []).append(
                 solve(trip, device_time))
-    work = trip_work(fs, obj, x0, stop)
+    from benchmarks_torch.roofline import trip_work
+
+    work = trip_work(obj, x0, stop, m=M, max_fev=MAX_FEV)
+    del work["trips"]  # the row has the solve's own
 
     def mean(which, device_time, key):
         rs = runs[(which, device_time)]
@@ -1867,65 +1922,6 @@ def timing(fs, obj, x0, stop) -> dict:
             mean("kernel", False, "lane_iterations")
             / mean("kernel", False, "wall")),
         **work,
-    }
-
-
-def trip_work(fs, obj, x0, stop) -> dict:
-    """Bytes and operations one kernel solve's trips need, lane by lane:
-    each input read once and each output written once.
-
-    A dead lane reads x0 and writes the trial point.  A lane mid-search
-    reads g_t, sdir, x0 and writes gacc and the trial point.  A lane at the
-    iteration boundary reads x0, g0, sdir and its accepted gradient, reads
-    the history rows its two-loop uses, writes x0, g0, sdir, gacc, the
-    trial point, and the one row of s and of y that an accepted pair takes
-    in the ring (at the head when the history is full, else at age count).
-    Scalar rows count for every live lane."""
-    import torch
-
-    state0 = obj.evaluate(x0)
-    b, n = x0.shape
-    w = x0.element_size()
-    tot = {"bytes": 0.0, "ops": 0.0, "trips": 0}
-    lanes = torch.arange(b, device=x0.device)
-
-    def counting(st, f_t, g_t, x_trial, stopping, max_fev):
-        si0 = st.si.clone()
-        c0 = si0[:, fs._I_COUNT].long()
-        head = si0[:, fs._I_HEAD].long()
-        slot = torch.where(c0 >= M, head, (head + c0) % M)
-        s_row, y_row = st.s[lanes, slot].clone(), st.y[lanes, slot].clone()
-        fs.flat_trip(st, f_t, g_t, x_trial, stopping, max_fev)
-        dead = si0[:, fs._I_STATUS] != 0
-        # A boundary lane counts one more iteration; a lane mid-search
-        # does not.
-        bnd = ~dead & (st.si[:, fs._I_NUMIT] != si0[:, fs._I_NUMIT])
-        mid = ~dead & ~bnd
-        acc = bnd & ((st.s[lanes, slot] != s_row).any(1)
-                     | (st.y[lanes, slot] != y_row).any(1))
-        c1 = st.si[:, fs._I_COUNT].long()
-        hist_read = 2 * n * (c1 - acc.long()).clamp(min=0)
-        hist_write = torch.where(acc, 2 * n, 0)
-        scal = (2 * (fs._NF + 8) + 1) * w + 2 * fs._NI * 4
-        elems = torch.where(dead, 2 * n, torch.where(
-            mid, 5 * n, 9 * n + hist_read + hist_write))
-        byts = elems * w + torch.where(dead, fs._NI * 4, scal)
-        ops = torch.where(dead, 0, torch.where(
-            mid, 4 * n, 24 * n + 10 * n * c1))
-        tot["bytes"] += float(byts.sum())
-        tot["ops"] += float(ops.sum())
-        tot["trips"] += 1
-
-    fs.flat_lbfgs_solve(obj, state0, stop, m=M, max_fev=MAX_FEV,
-                        trip=counting)
-    dname = str(x0.dtype).split(".")[1]
-    bytes_ms = tot["bytes"] / tot["trips"] / HBM_BYTES_PER_S * 1e3
-    ops_ms = tot["ops"] / tot["trips"] / PEAK_OPS_PER_S[dname] * 1e3
-    return {
-        "bytes_per_trip": tot["bytes"] / tot["trips"],
-        "ops_per_trip": tot["ops"] / tot["trips"],
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
 
 
@@ -2065,6 +2061,21 @@ def made_up_parity(mods, dname, b, n, names) -> dict:
             compare(name, {"mem_count": (k[2], p[2])}, {
                 "direction": (kd, pd, True), "s_memory": (k[0], p[0], True),
                 "y_memory": (k[1], p[1], True), "gamma": (k[3], p[3], False)})
+            if mods.K.lane_mapping(name, b, n, M,
+                                   kd.element_size()).threads_per_lane > 32:
+                # q in device memory must give the shipped mode's bits.
+                q = [t.clone() for t in (a["s"], a["y"], a["count"],
+                                         a["gamma"])]
+                with forced_rows(mods.K, name, mods.K.ROWS_DEVICE_Q):
+                    qd, *_ = mods.wrappers[name](a["g"], *q, *rest)
+                torch.cuda.synchronize()
+                same = all(torch.equal(bits(u), bits(v))
+                           for u, v in zip((qd, *q), (kd, *k)))
+                out[name]["device_q_bits"] = same
+                if not same:
+                    raise AssertionError(
+                        f"push_two_loop {dname} ({b}, {n}): q in device "
+                        "memory differs from the shipped mode")
             off = ~a["valid"]
             kept = all(bool((new[off] == old[off]).all()) for new, old in zip(
                 k, (a["s"], a["y"], a["count"], a["gamma"])))
@@ -2132,7 +2143,7 @@ def two_loop_bits(mods, a, kd, b, n) -> dict:
     shipped = K.lane_mapping("two_loop", b, n, M, w)
     warp = shipped.threads_per_lane == 32
     modes = [K.ROWS_STREAM, K.ROWS_DIRECT]
-    modes.append(K.ROWS_REGISTERS if warp else K.ROWS_RING)
+    modes += [K.ROWS_REGISTERS] if warp else [K.ROWS_RING, K.ROWS_DEVICE_Q]
     tried = [shipped.rows]
     for rows in modes:
         if rows == shipped.rows or K.lane_smem_bytes(
@@ -2815,16 +2826,6 @@ def _al_examples(cns):
             "circle": (circle, (-1.0, -1.0))}
 
 
-def _al_leg(cns, n):
-    """bench.py's AL leg (bench.py:468-512): f = sum(x) + 0.005 sum(x^2)
-    under the sphere equality sum(x^2) - n = 0."""
-    import torch
-
-    return cns.ConstrainedProblem(
-        cns.objective(lambda x: torch.sum(x) + 0.005 * torch.sum(x * x)),
-        (cns.objective(lambda x: torch.sum(x * x) - float(n)),))
-
-
 def constrained_main(mods, dev) -> dict:
     """L-BFGS-B, the augmented-Lagrangian layer and the finite-difference
     checkers on the card (the ``constrained_main`` phase):
@@ -2969,7 +2970,7 @@ def constrained_main(mods, dev) -> dict:
 
     # Augmented Lagrangian -----------------------------------------------------
     b, n = AL_LEG
-    leg = _al_leg(cns, n)
+    leg = al_leg_problem(cns, n)
     outer, inner_cap = AL_LEG_BUDGET
 
     def al_runs():
@@ -3602,6 +3603,15 @@ def parallel_pair_check(mods, ranks, dev) -> list:
             f"apart of {lanes}, largest |dx|]: {first})")
         if not (agree_ranks and all(row["bit_equal_to_blocks"].values())):
             raise AssertionError(f"(b) {label} differs: {row}")
+        if label == "lbfgsb":
+            # A lane's bits do not depend on the batch it is solved in
+            # (its products are per-lane contractions in a fixed order).
+            row["bit_equal_to_whole_batch"] = same_bits(
+                got, whole, ("status", "nfev", "x"))
+            if not all(row["bit_equal_to_whole_batch"].values()) or any(
+                    apart for apart, _ in first.values()):
+                raise AssertionError(f"(b) lbfgsb against the whole batch: "
+                                     f"{row}")
         if min(c[kernel] for c in launches) <= 0 or (
                 label == "lbfgs"
                 and max(c[kernel] for c in launches) != got["trips"]):
@@ -3611,6 +3621,102 @@ def parallel_pair_check(mods, ranks, dev) -> list:
                  & (got["x"] <= PARALLEL_BOX[1])).all()):
             raise AssertionError("(b) lbfgsb left its box")
         rows.append(row)
+    return rows
+
+
+def block_against_batch(cns, obj, solver, x0, stop, blocks=2) -> dict:
+    """Solve ``x0`` whole and as ``blocks`` contiguous blocks of lanes, each
+    solve tracing its first iteration: the lanes whose status, nfev or x at
+    the end differ in any bit, those whose first iteration's trace (value,
+    gradient and step norms, status) differs, the largest |dx|, and the
+    seconds of the solves."""
+    import torch
+
+    def summary(res):
+        out = host_summary(res)
+        out["first"] = torch.stack([
+            getattr(res.trace, f)[:, 0].double().cpu()
+            for f in ("value", "gradient_norm", "x_delta", "status")], -1)
+        return out
+
+    t0 = time.perf_counter()
+    whole = summary(cns.minimize_batched(obj, x0, solver, stop, trace=1))
+    lanes = x0.shape[0] // blocks
+    parts = [summary(cns.minimize_batched(
+        obj, x0[i * lanes:(i + 1) * lanes], solver, stop, trace=1))
+        for i in range(blocks)]
+    got = {k: torch.cat([p[k] for p in parts])
+           for k in ("status", "nfev", "x", "first")}
+
+    def apart(k):
+        a, b = got[k], whole[k]
+        differ = (a != b) & ~(a.isnan() & b.isnan())  # unwritten trace: NaN
+        return int(differ.reshape(a.shape[0], -1).any(-1).sum())
+
+    return {
+        "status": apart("status"), "nfev": apart("nfev"), "x": apart("x"),
+        "first_iteration": apart("first"),
+        "max_abs_dx": float((got["x"] - whole["x"]).abs().max()),
+        "seconds": time.perf_counter() - t0,
+    }
+
+
+def block_checks(mods, dev) -> list:
+    """Part (b)'s block-against-batch checks beyond the two ranks' solve,
+    each as two blocks against the whole batch, every lane bit-equal at
+    the end (status, nfev, x) and after its first iteration (the trace):
+    L-BFGS-B at PARALLEL_PAIR_SHAPE to its end in float64 (float32, and one
+    iteration's x in both precisions, beside the two ranks); L-BFGS-B at
+    BLOCK_PAIR_SHAPE (8 lanes of n = 4096, where PyTorch splits a long
+    row's sum by the number of rows) to its end in both precisions; then
+    BLOCK_DENSE at their SOLVER_RUNS shapes, one iteration in both
+    precisions (their full solves, 40 s more, were bit-equal by block on
+    the card: PERF.md §6), BFGS and the trust region held to it, Newton
+    recorded (its batched solve is a library call)."""
+    import torch
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    rows = []
+
+    def check(label, solver, x0, tobj, dname, budget, hold):
+        dtype = getattr(torch, dname)
+        stop = solver.default_stopping(dtype)
+        if budget:
+            stop = stop.replace(max_iterations=budget)
+        row = {"case": label, "shape": list(x0.shape), "dtype": dname,
+               "iterations": budget or "to the end", "held": hold,
+               "lanes_apart": block_against_batch(
+                   cns, tobj, solver, x0.to(dtype), stop)}
+        rows.append(row)
+        apart = row["lanes_apart"]
+        log(f"[parallel] (b) block against whole batch, {label} "
+            f"{tuple(x0.shape)} {dname}, {row['iterations']} iterations: "
+            f"lanes apart in status {apart['status']}, nfev "
+            f"{apart['nfev']}, x {apart['x']} (largest |dx| "
+            f"{apart['max_abs_dx']:.3e}), first iteration "
+            f"{apart['first_iteration']}; {apart['seconds']:.1f} s")
+        if hold and any(apart[k] for k in ("status", "nfev", "x",
+                                           "first_iteration")):
+            raise AssertionError(f"(b) {label} parts by block: {row}")
+
+    box = cns.Lbfgsb(m=5, lower=PARALLEL_BOX[0], upper=PARALLEL_BOX[1])
+    b, n = PARALLEL_PAIR_SHAPE
+    x0 = uniform_start(b, n, *PARALLEL_BOX_STARTS, torch.float64, dev)
+    check("lbfgsb", box, x0, obj, "float64", 0, True)
+    b, n = BLOCK_PAIR_SHAPE
+    x0 = uniform_start(b, n, *PARALLEL_BOX_STARTS, torch.float64, dev)
+    for dname in ("float32", "float64"):
+        check("lbfgsb", box, x0, obj, dname, 0, True)
+    for run in SOLVER_RUNS:
+        label, cls, kw, (b, n), mode = run[:5]
+        if label not in BLOCK_DENSE:
+            continue
+        solver = getattr(cns, cls)(**kw)
+        tobj = obj if mode == "second" else obj.with_mode(mode)
+        x0 = uniform_start(b, n, -2.0, 2.0, torch.float64, dev)
+        for dname in ("float32", "float64"):
+            check(label, solver, x0, tobj, dname, 1, label != "newton")
     return rows
 
 
@@ -3717,7 +3823,7 @@ def parallel_xla_alone(mods, dev) -> dict:
 
     from cppnumericalsolvers_tpu_torch.core.tree import any_lane
 
-    cns = mods.cns
+    cns, K = mods.cns, mods.K
     obj = cns.models.pairwise_rosenbrock()
     stop32 = cns.default_stopping(torch.float32)
     b, n = XLA_SHAPE
@@ -3733,19 +3839,195 @@ def parallel_xla_alone(mods, dev) -> dict:
            "iterations": res.progress.num_iterations.tolist(),
            "status": res.progress.status.tolist(),
            "converged_share": converged_share(res, cns)}
-    try:
-        cns.minimize_batched(obj, x0, cns.Lbfgs(m=M), stop32)
-        row["auto_raised"] = None
-    except ValueError as e:
-        row["auto_raised"] = str(e)
+    want = host_summary(res)
+    del res
+    # The default "auto" runs the flat solve's kernel here, q in device
+    # memory: one flat_trip launch a trip and nothing else.
+    row["auto_rows"] = K.lane_mapping("flat_trip", b, n, M, 4).rows
+    zero_launches(mods)
+    auto, row["auto_wall_s"] = timed_call(lambda: cns.minimize_batched(
+        obj, x0, cns.Lbfgs(m=M), stop32))
+    row["auto_launches"] = {k: v for k, v in launch_counts(mods).items()
+                            if v}
+    got = host_summary(auto)
+    row.update(auto_trips=got["trips"],
+               auto_iterations=got["iterations"].tolist(),
+               auto_status=got["status"].tolist(),
+               auto_converged_share=converged_share(auto, cns),
+               auto_status_agreement=float(
+                   (got["status"] == want["status"]).float().mean()),
+               auto_x_max_abs_diff=float((got["x"] - want["x"]).abs().max()))
+    del auto
     log(f"[parallel] (d) Lbfgs(two_loop_impl='xla') at ({b}, {n}) float32: "
         f"statuses {row['status']}, iterations {row['iterations']}, "
-        f"{res.trips} trips, wall {wall:.3f} s, launches "
-        f"{sum(launches.values())}; 'auto' raised: {row['auto_raised']}")
-    if any(launches.values()) or row["converged_share"] < 1.0 or not row[
-            "auto_raised"]:
+        f"{want['trips']} trips, wall {wall:.3f} s, launches "
+        f"{sum(launches.values())}; 'auto' (rows mode {row['auto_rows']}): "
+        f"statuses {row['auto_status']}, iterations "
+        f"{row['auto_iterations']}, {row['auto_trips']} trips, launches "
+        f"{row['auto_launches']}, wall {row['auto_wall_s']:.3f} s, largest "
+        f"|x - x_xla| {row['auto_x_max_abs_diff']:.3e}")
+    if any(launches.values()) or row["converged_share"] < 1.0 or (
+            row["auto_converged_share"] < 1.0
+            or row["auto_rows"] != K.ROWS_DEVICE_Q
+            or row["auto_launches"] != {"flat_trip": row["auto_trips"]}):
         raise AssertionError(f"(d): {row}")
     return row
+
+
+def padded_ms(fn, calls=FLOOR_TIMED_LAUNCHES, pad=KERNEL_PAD):
+    """Device ms a call of ``fn()`` over ``calls`` calls enqueued behind a
+    spin kernel (see :class:`Timed`), and whether the card had run dry
+    before the last was enqueued (starved)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    z = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(pad)
+    a.record()
+    for _ in range(calls):
+        fn()
+    starved = a.query()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / calls, bool(starved)
+
+
+def floors_main(mods, dev) -> dict:
+    """The calibration kernels of ``benchmarks_torch/roofline.py`` (the
+    ``floors_main`` phase), on the calibration's (8, 128) float32 buffers
+    from seed 0:
+
+    * each kernel against its plain version, bit for bit, after one launch
+      and after FLOOR_CHAIN's launches (``trip_floor`` in place on 8
+      buffers, as many times as the trip floor's longer loop runs;
+      ``launch_floor`` chained as the launch floor's longer chain);
+    * device ms a launch, spin-padded, of the kernel, of its plain version
+      and, for ``launch_floor``, of ``torch.add(x, 1.0, out=o)`` (the one
+      PyTorch call that computes it), in the order plain, kernel, kernel,
+      plain, library; the bound: bytes at 3.35 TB/s;
+    * the two calibrations, once each, with the launch counts set to 0
+      just before and read just after: the trip floor (host and device
+      microseconds a trip) and the launch floor (host and graph
+      microseconds a launch).
+
+    Raises on a difference or where a kernel did not launch."""
+    import numpy as np
+    import torch
+
+    from benchmarks_torch import roofline
+
+    F = mods.floors
+    shape = roofline.FLOOR_SHAPE
+    rng = np.random.default_rng(SEED)
+
+    def seeded():
+        return torch.from_numpy(rng.uniform(-2.0, 2.0, shape)).to(
+            device=dev, dtype=torch.float32)
+
+    rec = {"kernels": {}}
+    bufs = [seeded() for _ in range(F.TRIP_FLOOR_BUFFERS)]
+    x0 = seeded()
+    kern = [b.clone() for b in bufs]
+    plain = [b.clone() for b in bufs]
+    ka, kb = x0.clone(), torch.empty_like(x0)
+    px = x0.clone()
+    same = {"trip_floor": {}, "launch_floor": {}}
+    done = 0
+    for upto in (1, max(FLOOR_CHAIN.values())):
+        while done < upto:
+            if done < FLOOR_CHAIN["trip_floor"]:
+                F.trip_floor(kern)
+                F.trip_floor_reference(plain)
+            F.launch_floor(ka, out=kb)
+            ka, kb = kb, ka
+            px = F.launch_floor_reference(px)
+            done += 1
+        torch.cuda.synchronize()
+        same["trip_floor"][min(upto, FLOOR_CHAIN["trip_floor"])] = all(
+            torch.equal(k, p) for k, p in zip(kern, plain))
+        same["launch_floor"][upto] = bool(torch.equal(ka, px))
+    errs = {"trip_floor": max(float((k - p).abs().max())
+                              for k, p in zip(kern, plain)),
+            "launch_floor": float((ka - px).abs().max())}
+
+    out = torch.empty_like(x0)
+    calls = {
+        "trip_floor": (lambda: F.trip_floor(kern),
+                       lambda: F.trip_floor_reference(plain), None),
+        "launch_floor": (lambda: F.launch_floor(x0, out=out),
+                         lambda: F.launch_floor_reference(x0),
+                         lambda: torch.add(x0, 1.0, out=out)),
+    }
+    item = x0.element_size()
+    work = {"trip_floor": (2 * F.TRIP_FLOOR_BUFFERS * x0.numel() * item,
+                           2 * F.TRIP_FLOOR_BUFFERS * x0.numel()),
+            "launch_floor": (2 * x0.numel() * item, x0.numel())}
+    for name, (kfn, pfn, lfn) in calls.items():
+        runs = {"plain": [], "kernel": [], "library": []}
+        starved = []
+        order = ["plain", "kernel", "kernel", "plain"] + (
+            ["library"] if lfn else [])
+        for which in order:
+            fn = {"plain": pfn, "kernel": kfn, "library": lfn}[which]
+            if which == "plain":
+                ms, dry = padded_ms(fn, FLOOR_TIMED_PLAIN_CALLS, PLAIN_PAD)
+            else:
+                ms, dry = padded_ms(fn)
+            runs[which].append(ms)
+            if dry:
+                starved.append(which)
+        byts, ops = work[name]
+        bytes_ms = byts / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / PEAK_OPS_PER_S["float32"] * 1e3
+        rec["kernels"][name] = {
+            "shape": list(shape), "dtype": "float32",
+            "bit_equal_after": same[name], "max_abs_err": errs[name],
+            "ms": sum(runs["kernel"]) / 2,
+            "plain_ms": sum(runs["plain"]) / 2,
+            "library_ms": runs["library"][0] if lfn else None,
+            "kernel_ms_runs": runs["kernel"], "plain_ms_runs": runs["plain"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "starved_timed_runs": starved,
+        }
+
+    F.trip_floor.launches = F.launch_floor.launches = 0
+    t0 = time.perf_counter()
+    rec["trip"] = roofline.measure_loop_trip_overhead_us(device=dev)
+    rec["launch"] = roofline.measure_launch_overhead_us(device=dev)
+    rec["calibration_s"] = time.perf_counter() - t0
+    rec["launches"] = {"trip_floor": F.trip_floor.launches,
+                       "launch_floor": F.launch_floor.launches}
+    rec["calibration"] = {
+        "trip_floor_host_us": rec["trip"]["host_us"],
+        "trip_floor_device_us": rec["trip"]["device_us"],
+        "launch_host_us": rec["launch"]["host_us"],
+        "launch_graph_us": rec["launch"]["graph_us"],
+    }
+    for name, k in rec["kernels"].items():
+        log(f"[floors] {name} {tuple(shape)} float32: bit-equal to the "
+            f"plain version after {k['bit_equal_after']} launches, kernel "
+            f"{k['ms']:.4f} ms/launch, plain {k['plain_ms']:.4f} ms/call, "
+            + (f"torch.add {k['library_ms']:.4f} ms/call, "
+               if k["library_ms"] is not None else "")
+            + f"bound {k['bound_ms']:.6f} ms ({k['bound_by']}); starved "
+            f"timed runs {k['starved_timed_runs']}")
+    cal = rec["calibration"]
+    device_us = cal["trip_floor_device_us"]
+    log(f"[floors] calibration ({rec['calibration_s']:.1f} s): trip floor "
+        f"{cal['trip_floor_host_us']:.2f} us a trip on the host clock, "
+        + (f"{device_us:.2f} us" if device_us is not None
+           else "not measured")
+        + f" of the card's busy time; launch {cal['launch_host_us']:.3f} us "
+        f"from the host, {cal['launch_graph_us']:.3f} us in a CUDA graph; "
+        f"launches {rec['launches']} | {card_line()}")
+    for name, k in rec["kernels"].items():
+        if not all(k["bit_equal_after"].values()) or k["max_abs_err"]:
+            raise AssertionError(f"floors: {name} differs from plain: {k}")
+        if rec["launches"][name] <= 0:
+            raise AssertionError(f"floors: {name} never launched")
+    return rec
 
 
 def parallel_main(mods, dev) -> dict:
@@ -3784,6 +4066,7 @@ def parallel_main(mods, dev) -> dict:
         dist.destroy_process_group()
         os.remove(store)
     rec["b"] = parallel_pair_check(mods, ranks, dev)
+    rec["b_blocks"] = block_checks(mods, dev)
     rec["c_two_ranks"] = parallel_model_pair_check(ranks, one)
     rec["d"] = parallel_xla_alone(mods, dev)
     launches = {name: 0 for name in REPLACES}

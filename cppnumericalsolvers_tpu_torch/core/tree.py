@@ -16,10 +16,14 @@ import torch.distributed as dist
 
 __all__ = [
     "any_lane",
+    "fixed_sum",
     "lane_amax",
+    "lane_gram",
+    "lane_matvec",
     "lane_sum",
     "masked_while",
     "model_axis_group",
+    "strided_sum",
     "tree_map",
     "tree_where",
 ]
@@ -116,6 +120,107 @@ def lane_sum(x: torch.Tensor) -> torch.Tensor:
     if _MODEL_GROUP is not None:
         dist.all_reduce(s, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
     return s
+
+
+#: Rows of fewer than this many values are summed by one ``torch.sum``.
+#: On the card PyTorch reduces such a contiguous row with one warp, in an
+#: order set by the row's length alone; a longer row is split over as many
+#: threads, warps or blocks as the number of rows leaves room for, so its
+#: order (and its last bits) depends on the batch.
+_FIXED_ROW = 64
+_FIXED_CHUNK = 32
+
+
+def fixed_sum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(x, -1)`` in an order fixed by the length of the last axis
+    alone, whatever the leading (batch) shape, so that a lane's sum has the
+    same bits in a batch of any size.  A row shorter than 64 is one
+    ``torch.sum`` (bit for bit); a longer one is cut into chunks of 32,
+    zero-padded at its end, each chunk summed, and the chunk sums summed the
+    same way in turn.  A per-lane product ``a @ b`` is ``fixed_sum`` of the
+    elementwise product over the contracted axis: unlike a batched
+    ``matmul``, whose library picks its algorithm by the batch count, its
+    bits do not depend on the batch.  The card and the CPU add a row in
+    different orders; :func:`strided_sum` adds alike on both."""
+    x = x.contiguous()
+    while x.shape[-1] >= _FIXED_ROW:
+        pad = -x.shape[-1] % _FIXED_CHUNK
+        if pad:
+            x = torch.nn.functional.pad(x, (0, pad))
+        x = torch.sum(x.view(*x.shape[:-1], -1, _FIXED_CHUNK), dim=-1)
+    return torch.sum(x, dim=-1)
+
+
+#: Values of the elementwise product that one slice of :func:`lane_matvec`
+#: or :func:`lane_gram` holds at most (more rows go slice by slice): 2**24,
+#: 64 MiB in float32, whatever the batch and the width.
+_PRODUCT_VALUES = 1 << 24
+
+
+def _row_slices(rows: int, per_row: int):
+    step = max(1, _PRODUCT_VALUES // max(per_row, 1))
+    return [(i, min(i + step, rows)) for i in range(0, rows, step)]
+
+
+def lane_matvec(a: torch.Tensor, v: torch.Tensor, total=fixed_sum
+                ) -> torch.Tensor:
+    """``a @ v`` lane by lane, ``(B, r, k), (B, k) -> (B, r)``: the
+    elementwise product summed over k by ``total`` (:func:`fixed_sum`, or
+    :func:`strided_sum` for a short k), so a lane's bits do not depend on
+    its batch (a batched ``matmul``'s library picks its algorithm by the
+    batch count).  Rows go in slices whose product holds at most 2**24
+    values, one slice where they fit: the temporary stays ``a``'s size or
+    less, and each row's sum is the same whatever the slice."""
+    r = a.shape[-2]
+    parts = [total(a[..., i:j, :] * v[..., None, :])
+             for i, j in _row_slices(r, a.numel() // max(r, 1))]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+
+def lane_gram(a: torch.Tensor, b: torch.Tensor, total=fixed_sum
+              ) -> torch.Tensor:
+    """``a @ b^T`` lane by lane, ``(B, r, k), (B, s, k) -> (B, r, s)``, as
+    :func:`lane_matvec` sums: ``a``'s rows go in slices whose product holds
+    at most 2**24 values (one row's product is ``b``'s size)."""
+    parts = [total(a[..., i:j, None, :] * b[..., None, :, :])
+             for i, j in _row_slices(a.shape[-2], b.numel())]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+
+#: The width of :func:`strided_sum`'s partial sums.
+_STRIDE = 4
+
+
+def strided_sum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.sum(x, -1)`` of a short row in an explicit order, by
+    elementwise adds alone, so its bits depend neither on the batch nor on
+    the device: the row's leading multiple of four is read as groups of
+    four, each group added lane-wise to the one four groups before it into
+    up to four running groups, which are then added in turn; the tail (the
+    last ``k mod 4`` values) is summed first, and the four lanes of the
+    combined group are added to it one by one.  For float64 rows shorter
+    than 24 this is the order in which PyTorch's AVX-vectorised CPU sum
+    adds them, so on such a CPU the results keep ``torch.sum``'s bits, and
+    the card gives the same bits.  Each add is one launch: meant for rows
+    of a few values, such as L-BFGS-B's 2m slots."""
+    k = x.shape[-1]
+    if k == 0:
+        return torch.sum(x, dim=-1)
+    body = k - k % _STRIDE
+    total = None
+    for t in range(body, k):
+        total = x[..., t] if total is None else total + x[..., t]
+    if body:
+        groups = [x[..., i:i + _STRIDE] for i in range(0, body, _STRIDE)]
+        running = groups[:_STRIDE]
+        for i, g in enumerate(groups[_STRIDE:]):
+            running[i % _STRIDE] = running[i % _STRIDE] + g
+        acc = running[0]
+        for r in running[1:]:
+            acc = acc + r
+        for j in range(_STRIDE):
+            total = acc[..., j] if total is None else total + acc[..., j]
+    return total
 
 
 def lane_amax(x: torch.Tensor) -> torch.Tensor:

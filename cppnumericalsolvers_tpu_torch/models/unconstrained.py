@@ -13,6 +13,7 @@ import functools
 import torch
 
 from ..core.objective import Objective
+from ..core.tree import fixed_sum
 
 __all__ = [
     "quickstart_quadratic",
@@ -62,11 +63,14 @@ def extended_rosenbrock(n: int | None = None) -> Objective:
 @functools.lru_cache(maxsize=None)
 def pairwise_rosenbrock() -> Objective:
     """Extended Rosenbrock over disjoint (even, odd) pairs: the throughput
-    grid's objective (benchmarks/roofline.py:108); n must be even."""
+    grid's objective (benchmarks/roofline.py:108); n must be even.  Its sum
+    is ``core.tree.fixed_sum``, so a lane's value has the same bits in a
+    batch of any size on the card (``torch.sum`` of a batch of long rows
+    adds in an order that depends on the number of rows)."""
 
     def fn(x):
         even, odd = x[0::2], x[1::2]
-        return torch.sum(100.0 * (odd - even**2) ** 2 + (1.0 - even) ** 2)
+        return fixed_sum(100.0 * (odd - even**2) ** 2 + (1.0 - even) ** 2)
 
     return Objective(fn, mode="second")
 

@@ -45,6 +45,9 @@ KERNELS = {
     "lbfgs_prologue_t": [_P] * 14 + [_I] * 6 + [_P],
     "push_two_loop": [_P] * 9 + [_I] * 6 + [_P],
     "two_loop": [_P] * 6 + [_I] * 6 + [_P],
+    # The calibration kernels of benchmarks_torch/roofline.py (ops/floors.py).
+    "trip_floor": [_P] * 8 + [_I] + [_P],
+    "launch_floor": [_P] * 2 + [_I] + [_P],
 }
 
 

@@ -58,6 +58,10 @@ ROWS_STREAM, ROWS_STAGED, ROWS_DIRECT, ROWS_REGISTERS = 0, 1, 2, 3
 #: two_loop.cu's own block-per-lane mode: the rows stream through a ring of
 #: ``_RING_DEPTH`` row pairs, each copy issued three rows ahead of its use.
 ROWS_RING, _RING_DEPTH = 4, 4
+#: A block per lane past ``ROWS_DIRECT``'s reach: the rows read in place and
+#: q kept in device memory too, in the lane's row of the kernel's direction
+#: output (staged.cuh ``ROWS_DEVICE_Q``); it reaches any n.
+ROWS_DEVICE_Q = 5
 _REG_ROWS = 10
 _ELEMENTS_PER_THREAD = 8  # of a row, for n > 64
 # The prologue stages a lane's rows where four such lanes fit an SM, the
@@ -87,8 +91,9 @@ class LaneMapping:
     threads evenly), where its two-loop reads the history ``rows``
     (``ROWS_STAGED``: copied into shared memory; ``ROWS_STREAM``: streamed
     through shared-memory row buffers; ``ROWS_DIRECT``: from device memory
-    in place; ``ROWS_REGISTERS``: held in registers), the block's shared
-    memory and the grid."""
+    in place; ``ROWS_DEVICE_Q``: in place, q in device memory too;
+    ``ROWS_REGISTERS``: held in registers), the block's shared memory and
+    the grid."""
 
     lanes_per_block: int
     threads_per_lane: int
@@ -108,12 +113,13 @@ def lane_smem_bytes(m: int, n: int, itemsize: int, rows: int,
                     lanes: int = 1, warp: bool = True) -> int:
     """Shared memory of a block of ``lanes`` lanes (csrc/staged.cuh
     ``lane_values`` and ``mapping_smem``; csrc/two_loop.cu ``two_loop_smem``
-    for the ring): per lane alpha, rho, s.y and the usable flag per row, q,
-    and the staged rows (2 m n), the stream's two row buffers of s and y
-    (4 n) or the ring's four (8 n); a block-per-lane block adds its
-    reduction scratch."""
+    for the ring): per lane alpha, rho, s.y and the usable flag per row, q
+    (but in ``ROWS_DEVICE_Q``), and the staged rows (2 m n), the stream's
+    two row buffers of s and y (4 n) or the ring's four (8 n); a
+    block-per-lane block adds its reduction scratch."""
     extra = {ROWS_STAGED: 2 * m * n, ROWS_STREAM: 4 * n, ROWS_DIRECT: 0,
-             ROWS_REGISTERS: 0, ROWS_RING: 2 * _RING_DEPTH * n}
+             ROWS_REGISTERS: 0, ROWS_RING: 2 * _RING_DEPTH * n,
+             ROWS_DEVICE_Q: -n}
     lane = (4 * m + n + extra[rows]) * itemsize
     red = 0 if warp else 2 * _RED_SLOTS * _LANE_MAX_WARPS * itemsize
     return lanes * lane + red
@@ -162,6 +168,8 @@ def _pick(op: str, b: int, n: int, m: int, itemsize: int):
         rows = ROWS_RING
     if smem(rows) > SMEM_LIMIT:
         rows = ROWS_DIRECT
+    if smem(rows) > SMEM_LIMIT:
+        rows = ROWS_DEVICE_Q
     return 1, tpl, rows, smem(rows), 1
 
 
@@ -199,15 +207,18 @@ def lane_mapping(op: str, b: int, n: int, m: int, itemsize: int
       never stages them.
       Where the stream's row buffers do not fit a block (n > 5,752 in
       float64 and 11,563 in float32 at m = 10) the rows are read in place
-      (``ROWS_DIRECT``), whose shared memory is q and the per-row scalars:
-      that reaches n = 28,760 in float64 and 57,816 in float32.
+      (``ROWS_DIRECT``), whose shared memory is q and the per-row scalars,
+      up to n = 28,760 in float64 and 57,816 in float32; beyond that q too
+      lives in device memory (``ROWS_DEVICE_Q``), and there is no limit on
+      n.
       ``mt_trip`` and ``lbfgs_epilogue`` read no history (``ROWS_DIRECT``)
       and hold their 8 elements a thread in registers; the epilogue splits
       a lane over a cluster of 2 or 4 blocks while ``b`` times the cluster
       is below the card's 132 SMs and each block keeps at least 512
       elements.
 
-    Raises ``ValueError`` where the chosen layout does not fit a block."""
+    Raises ``ValueError`` where the chosen layout does not fit a block
+    (only where m's per-row scalars alone do not)."""
     lpb, tpl, rows, need, cl = _pick(op, b, n, m, itemsize)
     if need > SMEM_LIMIT:
         raise ValueError(

@@ -62,7 +62,7 @@ template <typename T> struct Args {
   Crit crit;
 };
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
                                   WARP ? WARP_MIN_BLOCKS : 2)
     flat_trip_kernel(Args<T> a) {
@@ -87,7 +87,9 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
     grp.red = base;
     base += GROUP_RED_VALUES;
   }
-  const LaneMem<T> lm(base, m, n);
+  // ROWS_DEVICE_Q: q is the lane's search direction row, written last.
+  const LaneMem<T> lm(base, m, n,
+                      DQ ? a.sdir + lane * n : nullptr);
   const int tid = grp.tid, nt = grp.nt;
   T *x0 = a.x0 + lane * n;
   T *g0 = a.g0 + lane * n;
@@ -292,13 +294,14 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
   }
 }
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 int launch_as(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   const size_t smem = mapping_smem(mp, a.m, a.n, sizeof(T));
-  if (int err = allow_smem(flat_trip_kernel<T, WARP, WIDE>, smem)) return err;
+  if (int err = allow_smem(flat_trip_kernel<T, WARP, WIDE, DQ>, smem))
+    return err;
   const int blocks = WARP ? (a.b + mp.lpb - 1) / mp.lpb : a.b;
   const int threads = WARP ? 32 * mp.lpb : mp.tpl;
-  flat_trip_kernel<T, WARP, WIDE><<<blocks, threads, smem, stream>>>(a);
+  flat_trip_kernel<T, WARP, WIDE, DQ><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -307,13 +310,20 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   if (a.b <= 0) return 0;
   if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) ||
-      (mp.rows != ROWS_STREAM && mp.rows != ROWS_DIRECT) ||
+      (mp.rows != ROWS_STREAM && mp.rows != ROWS_DIRECT &&
+       mp.rows != ROWS_DEVICE_Q) ||
+      (mp.rows == ROWS_DEVICE_Q && mp.tpl == 32) ||
       32 * mp.lpb > WARP_BLOCK_THREADS ||
       (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS))
     return (int)cudaErrorInvalidValue;
-  if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
-  return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)
-                                 : launch_as<T, false, false>(a, mp, stream);
+  if (mp.tpl == 32) return launch_as<T, true, false, false>(a, mp, stream);
+  if (mp.rows == ROWS_DEVICE_Q)  // a build of its own (staged.cuh LaneMem)
+    return mp.tpl > NARROW_THREADS
+               ? launch_as<T, false, true, true>(a, mp, stream)
+               : launch_as<T, false, false, true>(a, mp, stream);
+  return mp.tpl > NARROW_THREADS
+             ? launch_as<T, false, true, false>(a, mp, stream)
+             : launch_as<T, false, false, false>(a, mp, stream);
 }
 
 }  // namespace

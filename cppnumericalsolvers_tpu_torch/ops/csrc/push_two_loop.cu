@@ -59,7 +59,7 @@ template <typename T> struct Args {
   int b, n, m, rows;
 };
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
                                   WARP ? WARP_MIN_BLOCKS : 2)
     push_two_loop_kernel(Args<T> a) {
@@ -84,7 +84,9 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
     grp.red = base;
     base += GROUP_RED_VALUES;
   }
-  const LaneMem<T> lm(base, m, n);
+  T *d = a.d + lane * n;
+  // ROWS_DEVICE_Q: q is the lane's direction row itself.
+  const LaneMem<T> lm(base, m, n, DQ ? d : nullptr);
   const int tid = grp.tid, nt = grp.nt;
   const T *g = a.g + lane * n;
   const T *s_new = a.s_new + lane * n;
@@ -113,8 +115,8 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
   const Push<T> p = push_gate(valid, sm[0], sm[1], sm[2], count, m, gamma);
   push_two_loop_rows(grp, lm, p, hs, hy, s_new, y_new, g, a.rows, m, n);
 
-  T *d = a.d + lane * n;
-  for (int j = tid; j < n; j += nt) d[j] = lm.q[j];
+  if (!DQ)
+    for (int j = tid; j < n; j += nt) d[j] = lm.q[j];
   if (tid == 0) {
     a.count[lane] = p.new_count;
     a.gamma[lane] = p.new_gamma;
@@ -235,14 +237,14 @@ int launch_regs(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 int launch_as(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   const size_t smem = mapping_smem(mp, a.m, a.n, sizeof(T));
-  if (int err = allow_smem(push_two_loop_kernel<T, WARP, WIDE>, smem))
+  if (int err = allow_smem(push_two_loop_kernel<T, WARP, WIDE, DQ>, smem))
     return err;
   const int blocks = WARP ? (a.b + mp.lpb - 1) / mp.lpb : a.b;
   const int threads = WARP ? 32 * mp.lpb : mp.tpl;
-  push_two_loop_kernel<T, WARP, WIDE><<<blocks, threads, smem, stream>>>(a);
+  push_two_loop_kernel<T, WARP, WIDE, DQ><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -251,14 +253,21 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   if (a.b <= 0) return 0;
   if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) || mp.rows < 0 ||
-      mp.rows > ROWS_REGISTERS || 32 * mp.lpb > WARP_BLOCK_THREADS ||
+      (mp.rows > ROWS_REGISTERS && mp.rows != ROWS_DEVICE_Q) ||
+      (mp.rows == ROWS_DEVICE_Q && mp.tpl == 32) ||
+      32 * mp.lpb > WARP_BLOCK_THREADS ||
       (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS) ||
       (mp.rows == ROWS_REGISTERS && (mp.tpl != 32 || a.m > REG_ROWS)))
     return (int)cudaErrorInvalidValue;
   if (mp.rows == ROWS_REGISTERS) return launch_regs<T>(a, mp, stream);
-  if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
-  return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)
-                                 : launch_as<T, false, false>(a, mp, stream);
+  if (mp.tpl == 32) return launch_as<T, true, false, false>(a, mp, stream);
+  if (mp.rows == ROWS_DEVICE_Q)  // a build of its own (staged.cuh LaneMem)
+    return mp.tpl > NARROW_THREADS
+               ? launch_as<T, false, true, true>(a, mp, stream)
+               : launch_as<T, false, false, true>(a, mp, stream);
+  return mp.tpl > NARROW_THREADS
+             ? launch_as<T, false, true, false>(a, mp, stream)
+             : launch_as<T, false, false, false>(a, mp, stream);
 }
 
 }  // namespace

@@ -24,11 +24,15 @@
 // in place.  With a warp per lane (n <= 64, where a row is one or two cache
 // lines) each thread loads its elements of the next row into registers
 // before the current row's reduction.  With a block per lane the two-loop's
-// loops read them as they read the streamed rows; it is the mode that
-// reaches n = 28,760 in float64 and 57,816 in float32 at m = 10 (q, the
-// per-row scalars and the reduction scratch are its only shared memory),
-// taken where the stream's row buffers do not fit.  A row is addressed by
-// its age k (0 the oldest) at physical row (head + k) mod m.
+// loops read them as they read the streamed rows (q, the per-row scalars
+// and the reduction scratch are its only shared memory), taken where the
+// stream's row buffers do not fit: up to n = 28,760 in float64 and 57,816
+// in float32 at m = 10.  DEVICE_Q, beyond that: a block per lane reads the
+// rows in place as DIRECT does and keeps q in device memory too, in the
+// lane's row of the kernel's direction output; its shared memory is the
+// per-row scalars and the reduction scratch alone, so it reaches any n.  A
+// row is addressed by its age k (0 the oldest) at physical row
+// (head + k) mod m.
 //
 // Every thread of a group computes the scalar logic from identical inputs and
 // gets the same bits from every reduction, so per-row scalars are written to
@@ -109,31 +113,39 @@ template <typename T, bool WARP> struct Group {
 
 // Where the two-loop reads the history rows: copied on chip at the boundary
 // (STAGED), streamed from device memory through two row buffers in shared
-// memory (STREAM), or read from device memory in place (DIRECT).
-constexpr int ROWS_STREAM = 0, ROWS_STAGED = 1, ROWS_DIRECT = 2;
+// memory (STREAM), or read from device memory in place (DIRECT; DEVICE_Q,
+// a block per lane only, with q in device memory as well).  3 and 4 are
+// push_two_loop.cu's and two_loop.cu's own modes.
+constexpr int ROWS_STREAM = 0, ROWS_STAGED = 1, ROWS_DIRECT = 2,
+              ROWS_DEVICE_Q = 5;
 // Elements of a row one thread of a warp per lane holds in ROWS_DIRECT
 // (n <= 64).
 constexpr int DIRECT_ELEMENTS = 2;
 
 // Shared memory of one lane, in T values: alpha, rho, s.y and the usable
-// flag per row, q, then the staged rows (2 m n) or the stream's two row
-// buffers of s and y (4 n).  Block mode adds the reduction scratch once.
-// ops/_kernel.py::lane_smem_bytes mirrors this.
+// flag per row, q (but in ROWS_DEVICE_Q), then the staged rows (2 m n) or
+// the stream's two row buffers of s and y (4 n).  Block mode adds the
+// reduction scratch once.  ops/_kernel.py::lane_smem_bytes mirrors this.
 __host__ __device__ inline int lane_values(int m, int n, int rows) {
-  return 4 * m + n +
+  return 4 * m + (rows == ROWS_DEVICE_Q ? 0 : n) +
          (rows == ROWS_STAGED ? 2 * m * n : rows == ROWS_STREAM ? 4 * n : 0);
 }
 constexpr int GROUP_RED_VALUES = 2 * RED_SLOTS * LANE_MAX_WARPS;
 
+// A lane's shared memory; ``q_device`` (ROWS_DEVICE_Q) puts q in device
+// memory instead.  A kernel passes it under a template flag, so that the
+// mode is a build of its own: where q may lie in either memory every access
+// to it is a generic one, which made two_loop's ring 10% slower on the card
+// (PERF.md).
 template <typename T> struct LaneMem {
   T *alphas, *rhos, *sy, *usable, *q, *rows;
-  __device__ LaneMem(T *base, int m, int n) {
+  __device__ LaneMem(T *base, int m, int n, T *q_device = nullptr) {
     alphas = base;
     rhos = alphas + m;
     sy = rhos + m;
     usable = sy + m;
-    q = usable + m;
-    rows = q + n;
+    q = q_device ? q_device : usable + m;
+    rows = usable + m + (q_device ? 0 : n);
   }
 };
 
@@ -179,10 +191,11 @@ __device__ void stage_rows(const T *hs, const T *hy, T *stage, int count,
 // rows are in ``lm.rows`` (physical layout, m rows of s then m of y) and
 // their copies have landed; ROWS_STREAM, they are streamed from ``hs``/``hy``
 // through the two buffers at ``lm.rows``, the next row's copy in flight while
-// the current row is reduced; ROWS_DIRECT, they are read from ``hs``/``hy``
-// in place (a warp per lane loads the next row into registers ahead of the
-// current row's reduction).  Every mode adds a thread's products in order
-// of j.
+// the current row is reduced; ROWS_DIRECT and ROWS_DEVICE_Q, they are read
+// from ``hs``/``hy`` in place (a warp per lane loads the next row into
+// registers ahead of the current row's reduction).  Every mode adds a
+// thread's products in order of j, and each thread reads back only the
+// elements of q it wrote, wherever q lies.
 template <typename T, bool WARP>
 __device__ void two_loop_rows(Group<T, WARP> &g, const LaneMem<T> &lm,
                               const T *hs, const T *hy, int rows, int count,

@@ -144,7 +144,7 @@ inline size_t two_loop_smem(const Mapping &mp, int m, int n, size_t w) {
           (size_t)2 * RING_DEPTH * n + GROUP_RED_VALUES) * w;
 }
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
                                   WARP ? WARP_MIN_BLOCKS : 2)
     two_loop_kernel(Args<T> a) {
@@ -169,7 +169,9 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
     grp.red = base;
     base += GROUP_RED_VALUES;
   }
-  const LaneMem<T> lm(base, m, n);
+  T *d = a.d + lane * n;
+  // ROWS_DEVICE_Q: q is the lane's direction row itself.
+  const LaneMem<T> lm(base, m, n, DQ ? d : nullptr);
   const int tid = grp.tid, nt = grp.nt;
   const T *g = a.g + lane * n;
   const T *hs = a.s + lane * m * n;
@@ -186,8 +188,8 @@ __global__ void __launch_bounds__(bound_threads(WARP, WIDE),
   if (!ring)
     two_loop_rows(grp, lm, hs, hy, a.rows, count, 0, m, n, a.gamma[lane]);
 
-  T *d = a.d + lane * n;
-  for (int j = tid; j < n; j += nt) d[j] = lm.q[j];
+  if (!DQ)
+    for (int j = tid; j < n; j += nt) d[j] = lm.q[j];
 }
 
 // A warp per lane (n <= 64, m <= REG_ROWS) with every row in use held in
@@ -248,13 +250,14 @@ int launch_regs(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool WARP, bool WIDE>
+template <typename T, bool WARP, bool WIDE, bool DQ>
 int launch_as(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   const size_t smem = two_loop_smem(mp, a.m, a.n, sizeof(T));
-  if (int err = allow_smem(two_loop_kernel<T, WARP, WIDE>, smem)) return err;
+  if (int err = allow_smem(two_loop_kernel<T, WARP, WIDE, DQ>, smem))
+    return err;
   const int blocks = WARP ? (a.b + mp.lpb - 1) / mp.lpb : a.b;
   const int threads = WARP ? 32 * mp.lpb : mp.tpl;
-  two_loop_kernel<T, WARP, WIDE><<<blocks, threads, smem, stream>>>(a);
+  two_loop_kernel<T, WARP, WIDE, DQ><<<blocks, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -263,16 +266,22 @@ int launch(const Args<T> &a, const Mapping &mp, cudaStream_t stream) {
   if (a.b <= 0) return 0;
   if (mp.tpl < 32 || mp.tpl > LANE_MAX_THREADS || mp.tpl % 32 ||
       mp.lpb < 1 || (mp.tpl != 32 && mp.lpb != 1) || mp.rows < 0 ||
-      mp.rows > ROWS_RING || mp.rows == ROWS_STAGED ||
+      (mp.rows > ROWS_RING && mp.rows != ROWS_DEVICE_Q) ||
+      mp.rows == ROWS_STAGED || (mp.rows == ROWS_DEVICE_Q && mp.tpl == 32) ||
       32 * mp.lpb > WARP_BLOCK_THREADS ||
       (mp.tpl == 32 && a.n > 32 * DIRECT_ELEMENTS) ||
       (mp.rows == ROWS_REGISTERS && (mp.tpl != 32 || a.m > REG_ROWS)) ||
       (mp.rows == ROWS_RING && mp.tpl == 32))
     return (int)cudaErrorInvalidValue;
   if (mp.rows == ROWS_REGISTERS) return launch_regs<T>(a, mp, stream);
-  if (mp.tpl == 32) return launch_as<T, true, false>(a, mp, stream);
-  return mp.tpl > NARROW_THREADS ? launch_as<T, false, true>(a, mp, stream)
-                                 : launch_as<T, false, false>(a, mp, stream);
+  if (mp.tpl == 32) return launch_as<T, true, false, false>(a, mp, stream);
+  if (mp.rows == ROWS_DEVICE_Q)  // a build of its own (staged.cuh LaneMem)
+    return mp.tpl > NARROW_THREADS
+               ? launch_as<T, false, true, true>(a, mp, stream)
+               : launch_as<T, false, false, true>(a, mp, stream);
+  return mp.tpl > NARROW_THREADS
+             ? launch_as<T, false, true, false>(a, mp, stream)
+             : launch_as<T, false, false, false>(a, mp, stream);
 }
 
 }  // namespace

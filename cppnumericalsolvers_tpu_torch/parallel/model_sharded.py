@@ -29,9 +29,10 @@ sharded in two ways:
 L-BFGS runs as ``Lbfgs(two_loop_impl="xla")`` (the push, the two-loop and
 the More-Thuente trips in plain PyTorch, no kernel), forced here as the JAX
 package forces its pure-XLA lowering; gradient descent runs as it is, its
-More-Thuente trips in plain PyTorch too (``core.tree.model_axis_group``).
-These two are the solvers whose reductions over n all go through
-``core.tree``'s lane reductions; any other raises.
+More-Thuente trips in plain PyTorch too (``core.tree.model_axis_group``),
+and so does conjugate gradient with its Armijo search.  These three are the
+solvers whose reductions over n all go through ``core.tree``'s lane
+reductions; any other raises with its reason (:func:`_check_solver`).
 
 Combine with the batch axis for a 2-D mesh: ``x0`` of shape ``(B, n)``
 with ``batch_axis`` splits the lanes over that axis (contiguous blocks,
@@ -56,8 +57,14 @@ from ..core.driver import (
 from ..core.objective import MODE_NONE, Objective
 from ..core.progress import StoppingCriteria
 from ..core.tree import model_axis_group
+from ..solvers.bfgs import Bfgs
+from ..solvers.conjugate_gradient import CgInternals, ConjugateGradientDescent
 from ..solvers.gradient_descent import GradientDescent
 from ..solvers.lbfgs import Lbfgs, LbfgsInternals
+from ..solvers.lbfgsb import Lbfgsb
+from ..solvers.nelder_mead import NelderMead
+from ..solvers.newton import NewtonDescent
+from ..solvers.trust_region import TrustRegionNewton
 from .comm import all_gather_cat, gather_lanes, rank_device, shard_sizes
 from .sharded import make_mesh
 
@@ -73,15 +80,43 @@ def _force_xla_two_loop(solver: SolverBase) -> SolverBase:
     return solver
 
 
+#: Why each solver the port does not model-shard cannot be, by class.
+_UNSHARDABLE = {
+    Lbfgsb: "its generalized-Cauchy-point walk sorts the breakpoints over "
+            "all of n, which a rank holding one shard cannot do",
+    Bfgs: "it holds an n x n inverse Hessian per lane",
+    NewtonDescent: "it forms and solves with the n x n Hessian per lane",
+    TrustRegionNewton: "it holds the n x n Hessian per lane, and its "
+                       "Hessian-free form's CG-Steihaug sums over n outside "
+                       "core.tree's lane reductions",
+    NelderMead: "it holds an (n + 1) x n simplex per lane",
+}
+
+#: Fields of a result's internals that are sharded along n, by type.
+_ALONG_N = {
+    LbfgsInternals: ("s_memory", "y_memory", "s_pending", "y_pending"),
+    CgInternals: ("previous_gradient", "direction"),
+}
+
+
 def _check_solver(solver: SolverBase) -> None:
-    if isinstance(solver, Lbfgs) and not solver.use_hessian_preconditioner:
+    """Raise unless every reduction over n of ``solver``'s loop goes
+    through ``core.tree``'s lane reductions: ``Lbfgs`` without the Hessian
+    preconditioner, ``GradientDescent`` and ``ConjugateGradientDescent``."""
+    if isinstance(solver, Lbfgs):
+        if not solver.use_hessian_preconditioner:
+            return
+        why = ("the Hessian-diagonal preconditioner needs the Hessian, "
+               "which the model-sharded objective does not evaluate")
+    elif isinstance(solver, (GradientDescent, ConjugateGradientDescent)):
         return
-    if isinstance(solver, GradientDescent):
-        return
+    else:
+        why = next((v for k, v in _UNSHARDABLE.items()
+                    if isinstance(solver, k)),
+                   "its reductions over n do not go through core.tree's "
+                   "lane reductions")
     raise ValueError(
-        f"{type(solver).__name__} is not model-sharded in the port: only "
-        "Lbfgs (without the Hessian preconditioner) and GradientDescent "
-        "reduce over n through core.tree's lane reductions."
+        f"{type(solver).__name__} is not model-sharded in the port: {why}."
     )
 
 
@@ -200,10 +235,10 @@ def minimize_model_sharded(
 
     res.state.x = along_n(res.state.x)
     res.state.gradient = along_n(res.state.gradient)
-    if isinstance(res.internals, LbfgsInternals):
+    fields = _ALONG_N.get(type(res.internals), ())
+    if fields:
         res.internals = dataclasses.replace(res.internals, **{
-            name: along_n(getattr(res.internals, name))
-            for name in ("s_memory", "y_memory", "s_pending", "y_pending")})
+            name: along_n(getattr(res.internals, name)) for name in fields})
     if batch_axis is not None:
         res = gather_lanes(res, mesh.get_group(batch_axis), b)
     return _unbatch_result(res) if batch_axis is None else res

@@ -3,9 +3,11 @@
 PyTorch counterpart of ``cppnumericalsolvers_tpu/solvers/bfgs.py`` (the
 reference's Bfgs, include/cppoptlib/solver/bfgs.h:39-145).  The ``(B, n,
 n)`` inverse Hessians ride in the internals; the direction and the rank-2
-update are batched ``torch`` matrix products, as they are XLA's in the JAX
-package.  The default More-Thuente search runs the ``mt_trip`` kernel on the
-card.  Guards preserved:
+update are per-lane products (elementwise, summed by
+``core.tree.fixed_sum``), XLA's in the JAX package: a batched ``matmul``'s
+library picks its algorithm by the batch count, so a lane's bits would
+depend on the batch it is solved in.  The default More-Thuente search runs
+the ``mt_trip`` kernel on the card.  Guards preserved:
 
 * reset to identity and steepest descent when the approximation loses
   positive definiteness or turns NaN (bfgs.h:84-92);
@@ -24,6 +26,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
+from ..core.tree import fixed_sum, lane_matvec
 from ..linesearch.dispatch import run_line_search
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 
@@ -37,11 +40,11 @@ class BfgsInternals:
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return fixed_sum(a * b)
 
 
-def _matvec(h, v):
-    return torch.matmul(h, v[..., None])[..., 0]
+def _norm(a):
+    return torch.sqrt(_dot(a, a))
 
 
 def _outer(a, b):
@@ -77,7 +80,7 @@ class Bfgs(SolverBase):
         g = state.gradient
         eye = torch.eye(n, dtype=dtype, device=state.x.device)
 
-        direction = -_matvec(internals.inverse_hessian, g)
+        direction = -lane_matvec(internals.inverse_hessian, g)
         phi = _dot(g, direction)
 
         # PD/NaN reset (bfgs.h:84-92).
@@ -86,7 +89,7 @@ class Bfgs(SolverBase):
         direction = torch.where(reset[:, None], -g, direction)
         fresh = internals.fresh | reset
 
-        dnorm = torch.linalg.vector_norm(direction, dim=-1)
+        dnorm = _norm(direction)
         one = torch.ones_like(dnorm)
         alpha_init = torch.where(
             fresh, torch.where(dnorm > eps, 1.0 / dnorm, one), one)
@@ -111,10 +114,9 @@ class Bfgs(SolverBase):
         s = next_state.x - state.x
         y = next_state.gradient - g
         ys = _dot(y, s)
-        norm = torch.linalg.vector_norm
-        accept = ys > eps * norm(s, dim=-1) * norm(y, dim=-1)
+        accept = ys > eps * _norm(s) * _norm(y)
         rho = (1.0 / torch.where(accept, ys, one))[:, None, None]
-        hy = _matvec(h, y)
+        hy = lane_matvec(h, y)
         yhy = _dot(y, hy)[:, None, None]
         h_updated = (
             h

@@ -19,6 +19,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
+from ..core.tree import lane_sum
 from ..linesearch.armijo import armijo
 
 __all__ = ["ConjugateGradientDescent", "CgInternals"]
@@ -32,7 +33,9 @@ class CgInternals:
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    # Through core.tree's lane reduction: inside a model-sharded solve the
+    # sum over n spans the ranks.
+    return lane_sum(a * b)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,7 +18,13 @@ package's storage and arithmetic:
   runs it; the coordinate examined is picked by ``torch.gather``;
 * free variables are boolean masks, so the subspace minimization
   (lbfgsb.h:459-515, with the paper's sign fix at :502) is a fixed
-  ``(2m, 2m)`` solve however many variables are free.
+  ``(2m, 2m)`` solve however many variables are free;
+* every product (``S^T Y``, ``W^T d``, ``W_F^T W_F``, ...) is a per-lane
+  contraction, an elementwise product summed over n by
+  ``core.tree.fixed_sum`` and over the 2m slots by ``core.tree.strided_sum``:
+  a batched ``matmul`` goes to cuBLAS, which picks its algorithm by the
+  batch count, so a lane's bits depended on the batch it was solved in.
+  Here they do not, and the slot sums add on the card as on the CPU.
 
 The search runs the batched More-Thuente of ``ops/fused_linesearch.py``, so
 on the card every search trip is one ``mt_trip`` launch.  The
@@ -46,7 +52,9 @@ from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import ProgressState, StoppingCriteria, default_stopping
 from ..core.status import Status
-from ..core.tree import any_lane, masked_while, tree_where
+from ..core.tree import (
+    any_lane, fixed_sum, lane_gram, lane_matvec, masked_while, strided_sum,
+    tree_where)
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.fused_linesearch import batched_more_thuente
 from ..utils.linalg import invert_small, solve_small
@@ -83,11 +91,13 @@ class LbfgsbInternals:
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return fixed_sum(a * b)
 
 
-def _matvec(a, v):
-    return torch.matmul(a, v[..., None])[..., 0]
+def _sdot(a, b):
+    """A dot product over the 2m slots."""
+    return strided_sum(a * b)
+
 
 
 def _build_w(internals: LbfgsbInternals) -> torch.Tensor:
@@ -106,10 +116,10 @@ def _build_middle(s_history, y_history, count, theta, m):
     invalid slots (lbfgsb.h:227-235).  The zero-padded buffers give the
     reference's k x k blocks because invalid slots hold zero vectors."""
     dtype, dev = s_history.dtype, s_history.device
-    a = s_history @ y_history.transpose(-1, -2)  # (B, m, m) S^T Y
+    a = lane_gram(s_history, y_history)  # (B, m, m) S^T Y
     low = torch.tril(a, diagonal=-1)
     d = torch.diag_embed(torch.diagonal(a, dim1=-2, dim2=-1))
-    ss = s_history @ s_history.transpose(-1, -2)
+    ss = lane_gram(s_history, s_history)
     top = torch.cat([-d, low.transpose(-1, -2)], dim=-1)
     bottom = torch.cat([low, theta[:, None, None] * ss], dim=-1)
     mm = torch.cat([top, bottom], dim=-2)
@@ -171,12 +181,13 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     order = torch.argsort(t, dim=-1, stable=True)  # ascending breakpoints
     rank = torch.argsort(order, dim=-1, stable=True)
 
-    p = _matvec(w.transpose(-1, -2), d)  # (B, 2m)
+    p = lane_matvec(w.transpose(-1, -2), d)  # (B, 2m) W^T d
     c = torch.zeros_like(p)
     f_prime = -_dot(d, d)
     f_dprime = torch.maximum(
         torch.full_like(f_prime, _CAUCHY_EPS),
-        -theta * f_prime - _dot(p, _matvec(middle_inv, p)),
+        -theta * f_prime
+        - _sdot(p, lane_matvec(middle_inv, p, strided_sum)),
     )
     dt_min = -f_prime / f_dprime
 
@@ -213,11 +224,12 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
         c_new = s.c + s.dt[:, None] * s.p
         wbt = torch.gather(
             w, 1, b[:, None, None].expand(b_, 1, w.shape[-1]))[:, 0]
-        mwbt = _matvec(middle_inv, wbt)
+        mwbt = lane_matvec(middle_inv, wbt, strided_sum)
         f_prime = (s.f_prime + s.dt * s.f_dprime + gb * gb
-                   + theta * gb * zb - gb * _dot(mwbt, c_new))
+                   + theta * gb * zb - gb * _sdot(mwbt, c_new))
         f_dprime = (s.f_dprime - theta * gb * gb
-                    - 2.0 * gb * _dot(mwbt, s.p) - gb * gb * _dot(wbt, mwbt))
+                    - 2.0 * gb * _sdot(mwbt, s.p)
+                    - gb * gb * _sdot(wbt, mwbt))
         f_dprime = torch.maximum(_CAUCHY_EPS * f_dp_orig, f_dprime)
         p_new = s.p + gb[:, None] * wbt
         d_new = torch.where(oh, torch.zeros_like(s.d), s.d)
@@ -262,21 +274,24 @@ def _subspace_minimization(x, gradient, x_cauchy, c, lower, upper, w,
     free = (x_cauchy != upper) & (x_cauchy != lower)
     theta_inv = 1.0 / theta
     rr = (gradient + theta[:, None] * (x_cauchy - x)
-          - _matvec(w, _matvec(middle_inv, c)))
+          - lane_matvec(w, lane_matvec(middle_inv, c, strided_sum),
+                        strided_sum))
     r = torch.where(free, rr, torch.zeros_like(rr))
 
     # v = M^-1 (W_F^T r); N = I - M^-1 (theta^-1 W_F^T W_F)
     # (lbfgsb.h:484-495), W_F being W with its bound rows zeroed.
     wf = w * free[:, :, None].to(dtype)
     wft = wf.transpose(-1, -2)
-    v = _matvec(middle_inv, _matvec(wft, r))
-    nn = theta_inv[:, None, None] * (wft @ wf)
-    nn = torch.eye(two_m, dtype=dtype, device=dev) - middle_inv @ nn
+    v = lane_matvec(middle_inv, lane_matvec(wft, r), strided_sum)
+    nn = theta_inv[:, None, None] * lane_gram(wft, wft)
+    nn = (torch.eye(two_m, dtype=dtype, device=dev)
+          - lane_gram(middle_inv, nn.transpose(-1, -2), strided_sum))
     v = solve_small(nn, v)
 
     # The sign-fixed step (lbfgsb.h:500-504).
     du = (-theta_inv[:, None] * r
-          - (theta_inv * theta_inv)[:, None] * _matvec(wf, v))
+          - (theta_inv * theta_inv)[:, None]
+          * lane_matvec(wf, v, strided_sum))
 
     # alpha* = max {a <= 1 : l - xc <= a du <= u - xc} over free
     # coordinates (lbfgsb.h:435-457).

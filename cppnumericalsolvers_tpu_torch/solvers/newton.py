@@ -18,6 +18,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
+from ..core.tree import fixed_sum, lane_matvec
 from ..linesearch.armijo import armijo
 from ..utils.linalg import condition_test_enabled, frobenius_condition
 
@@ -54,9 +55,9 @@ class NewtonDescent(SolverBase):
             n, dtype=state.x.dtype, device=state.x.device)
         delta_x = torch.linalg.solve_ex(shifted, -gradient)[0]
 
-        curvature = torch.sum(
-            delta_x * torch.matmul(hessian, delta_x[..., None])[..., 0],
-            dim=-1)
+        # Per-lane products in a fixed order (a batched matmul's bits
+        # depend on the batch count).
+        curvature = fixed_sum(delta_x * lane_matvec(hessian, delta_x))
         ls = armijo(objective.batched_value, state.x, state.value, gradient,
                     delta_x, alpha_init=1.0, curvature_term=curvature)
         new_x = state.x + ls.alpha[:, None] * delta_x

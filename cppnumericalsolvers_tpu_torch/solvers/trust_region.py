@@ -30,7 +30,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
-from ..core.tree import masked_while
+from ..core.tree import fixed_sum, lane_matvec, masked_while
 from ..utils.linalg import condition_test_enabled, frobenius_condition
 
 __all__ = ["TrustRegionNewton", "TrInternals", "solve_tr_subproblem"]
@@ -45,11 +45,12 @@ class TrInternals:
 
 
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    # A fixed order: the lane's bits do not depend on its batch (C#12).
+    return fixed_sum(a * b)
 
 
 def _norm(a):
-    return torch.linalg.vector_norm(a, dim=-1)
+    return torch.sqrt(_dot(a, a))
 
 
 def _extend_to_boundary(p, direction, radius):
@@ -185,7 +186,7 @@ class TrustRegionNewton(SolverBase):
             evaluations += 1
 
             def hvp(v):
-                return torch.matmul(hessian, v[..., None])[..., 0]
+                return lane_matvec(hessian, v)
 
             hessian_nfev = 1  # the fresh Hessian (:199-201)
             # cond(H) costs an inverse: only when the criterion is on.

@@ -27,7 +27,9 @@ records the kernel's device time per launch with ``torch.profiler``
   it (float32, and float64 at path B's (1024, 256));
 * ``two_loop``: 20 calls on made-up inputs per mapping, in float32 and
   float64, at path C's shapes and at n = 256 and 2048 (the ring, the
-  stream and the rows in place where each fits a block);
+  stream, the rows in place and q in device memory where each fits a
+  block; q in device memory is a mapping of every block-per-lane history
+  kernel);
 * ``lbfgs_epilogue``: a traced solve cut at 40 iterations per mapping
   (lanes per block, threads per lane, cluster), and on made-up inputs
   (``chip_smoke.made_up_epilogue``) a digest of every output's bits per
@@ -91,6 +93,7 @@ def variants(K, n, op, itemsize=4):
                          for rows in warp]
     if op == "two_loop":
         modes += (K.ROWS_RING,)
+    modes += (K.ROWS_DEVICE_Q,)
     out = [None]
     for tpl in (64, 128, 256, 512):
         if tpl * 16 < n or tpl > n:

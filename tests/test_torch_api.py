@@ -195,11 +195,13 @@ def test_flat_trip_checks_its_arguments():
 
 
 def test_shared_memory_bound_is_checked_before_launch():
-    # q (n values), alpha/rho (m each), the usable flags and the reduction
-    # scratch must fit the 227 KB a Hopper block can have.
+    # alpha/rho (m each), the usable flags and the reduction scratch, and
+    # q (n values) where it fits (else in device memory), must fit the
+    # 227 KB a Hopper block can have.
     assert fs.flat_trip_smem_bytes(10, 4096, 4) < fs._SMEM_LIMIT
     assert fs.flat_trip_smem_bytes(10, 4096, 8) < fs._SMEM_LIMIT
-    assert fs.flat_trip_smem_bytes(10, 40000, 8) > fs._SMEM_LIMIT
+    assert fs.flat_trip_smem_bytes(10, 40000, 8) < fs._SMEM_LIMIT
+    assert fs.flat_trip_smem_bytes(8000, 40000, 8) > fs._SMEM_LIMIT
 
 
 def test_lbfgs_accepts_every_jax_search():

@@ -12,8 +12,9 @@ redesigned kernels.
 * The mapping helper (``ops/_kernel.py::lane_mapping``): every shape the
   card runs, ragged ones too, in both dtypes, gets a mapping whose shared
   memory fits a Hopper block, for each of the five kernels that take one;
-  the history kernels reach n = 28,760 in float64 and 57,816 in float32 at
-  m = 10 (rows read in place) and raise beyond.
+  the history kernels keep q in shared memory up to n = 28,760 in float64
+  and 57,816 in float32 at m = 10 (rows read in place) and in device memory
+  beyond; they raise only where m's per-row scalars overfill a block.
 """
 
 import dataclasses
@@ -170,9 +171,14 @@ def test_lane_mapping_choices_at_the_main_shapes():
 
 
 def test_lane_mapping_raises_where_nothing_fits():
+    # q moves to device memory at n = 40,000 float64; m = 8,000 per-row
+    # scalars (256 KB) overfill a block whatever n is.
+    assert (_kernel.lane_mapping("lbfgs_prologue", 4, 40000, 10, 8).rows
+            == _kernel.ROWS_DEVICE_Q)
     with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping("lbfgs_prologue", 4, 40000, 10, 8)
-    assert fs.flat_trip_smem_bytes(10, 40000, 8) > fs._SMEM_LIMIT
+        _kernel.lane_mapping("lbfgs_prologue", 4, 40000, 8000, 8)
+    assert fs.flat_trip_smem_bytes(10, 40000, 8) <= fs._SMEM_LIMIT
+    assert fs.flat_trip_smem_bytes(8000, 40000, 8) > fs._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("op", ["push_two_loop", "lbfgs_epilogue"])
@@ -271,10 +277,11 @@ def test_lane_mapping_reaches_large_n(b, n, itemsize, op):
 def test_lane_mapping_reach_in_n_at_m_10(op, itemsize, reach):
     mp = _kernel.lane_mapping(op, 4, reach, 10, itemsize)
     assert mp.rows == _kernel.ROWS_DIRECT
-    with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping(op, 4, reach + 1, 10, itemsize)
-    with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping(op, 4, 40000 * 8 // itemsize, 10, itemsize)
+    for n in (reach + 1, 40000 * 8 // itemsize, 64 * reach):
+        mp = _kernel.lane_mapping(op, 4, n, 10, itemsize)
+        assert mp.rows == _kernel.ROWS_DEVICE_Q
+        assert mp.smem_bytes <= _kernel.SMEM_LIMIT
+        assert (mp.lanes_per_block, mp.threads_per_lane) == (1, 512)
 
 
 def test_build_declares_the_new_entry_points_and_reads_ptxas():

@@ -320,10 +320,12 @@ def test_wrappers_check_their_arguments():
 
 
 def test_prologue_shared_memory_bound_is_checked_before_launch():
-    # The prologue's block holds q (n values) and O(m) scratch at least;
-    # above the 227 KB a Hopper block can have the wrapper's mapping raises,
-    # with no fallback.
+    # The prologue's block holds O(m) scratch at least, and q (n values)
+    # where it fits; above the 227 KB a Hopper block can have the wrapper's
+    # mapping raises, with no fallback.
     _kernel.lane_mapping("lbfgs_prologue", 4, 4096, 10, 4)
     _kernel.lane_mapping("lbfgs_prologue", 4, 4096, 10, 8)
+    assert (_kernel.lane_mapping("lbfgs_prologue", 4, 40000, 10, 8).rows
+            == _kernel.ROWS_DEVICE_Q)
     with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping("lbfgs_prologue", 4, 40000, 10, 8)
+        _kernel.lane_mapping("lbfgs_prologue", 4, 40000, 8000, 8)

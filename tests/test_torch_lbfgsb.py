@@ -359,3 +359,153 @@ def test_jax_solve_cut_and_resumed_in_the_port():
                                   np.asarray(whole.state.nfev))
     np.testing.assert_allclose(got.state.x.numpy(),
                                np.asarray(whole.state.x), rtol=0, atol=1e-6)
+
+
+def test_five_iterations_are_exact_at_long_rows():
+    """The short-budget contract where the per-lane products sum rows of
+    n = 130 in a fixed order (``core.tree.fixed_sum``: chunks of 32,
+    zero-padded, summed, and their sums summed) and the history is full
+    after five iterations
+    (m = 3): status, nfev and num_iterations exact, iterates and the
+    internals within 1e-12 of the JAX package's matrix products."""
+    b, n = 6, 130
+    x0 = np.random.default_rng(8).uniform(-2.0, 2.0, (b, n))
+    jsolver = JaxLbfgsb(m=3, lower=-2.0, upper=0.9)
+    tsolver = cns.Lbfgsb(m=3, lower=-2.0, upper=0.9)
+    js = jsolver.default_stopping(jnp.float64).replace(max_iterations=5)
+    ts = tsolver.default_stopping(torch.float64).replace(max_iterations=5)
+    want = jcns.minimize_batched(jcns.objective(jpairwise), jnp.asarray(x0),
+                                 jsolver, js)
+    got = cns.minimize_batched(cns.objective(tpairwise),
+                               torch.from_numpy(x0), tsolver, ts,
+                               device="cpu")
+    for name in ("status", "num_iterations"):
+        np.testing.assert_array_equal(
+            getattr(got.progress, name).numpy(),
+            np.asarray(getattr(want.progress, name)), err_msg=name)
+    np.testing.assert_array_equal(got.state.nfev.numpy(),
+                                  np.asarray(want.state.nfev))
+    np.testing.assert_allclose(got.state.x.numpy(), np.asarray(want.state.x),
+                               rtol=1e-12, atol=1e-12)
+    assert_internals_close(got.internals, want.internals, 1e-12)
+    assert int(got.internals.count.min()) == 3
+
+
+def test_per_lane_products_match_jax():
+    """The middle matrix (``S^T Y``, ``S^T S``) and the subspace step
+    (``W_F^T r``, ``W_F^T W_F``, ``MM^-1 N``), now per-lane contractions,
+    against the JAX package's matrix products on a real history at n =
+    130: within 1e-12 of each result's largest entry."""
+    b, n, m = 4, 130, 3
+    start = np.random.default_rng(9).uniform(-2.0, 2.0, (b, n))
+    jsolver = JaxLbfgsb(m=m, lower=-2.0, upper=0.9)
+    run = jcns.minimize_batched(
+        jcns.objective(jpairwise), jnp.asarray(start), jsolver,
+        jsolver.default_stopping(jnp.float64).replace(max_iterations=4))
+    jint = run.internals
+    tint = from_jax_numpy(jax.tree.map(np.asarray, jint))
+
+    def close(a, b):
+        b = np.asarray(b)
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.numpy() / scale, b / scale, rtol=0,
+                                   atol=1e-12)
+
+    close(tlbfgsb._build_middle(tint.s_history, tint.y_history, tint.count,
+                                tint.theta, m),
+          jax.vmap(lambda s, y, c, t: jlbfgsb._build_middle(s, y, c, t, m))(
+              jint.s_history, jint.y_history, jint.count, jint.theta))
+    x = np.array(run.state.x)
+    g = np.array(run.state.gradient)
+    w = jax.vmap(jlbfgsb._build_w)(jint)
+    xc, c = jax.vmap(jlbfgsb._generalized_cauchy_point)(
+        jnp.asarray(x), jnp.asarray(g), jint.lower, jint.upper, w,
+        jint.middle_inv, jint.theta)
+    want = jax.vmap(jlbfgsb._subspace_minimization)(
+        jnp.asarray(x), jnp.asarray(g), xc, c, jint.lower, jint.upper, w,
+        jint.middle_inv, jint.theta)
+    got = tlbfgsb._subspace_minimization(
+        torch.from_numpy(x), torch.from_numpy(g),
+        torch.from_numpy(np.array(xc)), torch.from_numpy(np.array(c)),
+        tint.lower, tint.upper, tlbfgsb._build_w(tint), tint.middle_inv,
+        tint.theta)
+    close(got[0], want[0])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_a_lane_solves_alike_in_any_batch(dtype):
+    """A lane's L-BFGS-B solve does not depend on the batch it is solved
+    in: 16 lanes (n = 100, the two-rank case's box [0.5, 4] from starts in
+    [1, 3]) against the same lanes as two blocks of 8, status, nfev and x
+    bit-equal per lane.  Every product is a per-lane contraction in an
+    order fixed by its length (a batched ``matmul``'s library may pick its
+    algorithm by the batch count; on the card it did, C#12)."""
+    x0 = torch.from_numpy(
+        np.random.default_rng(0).uniform(1.0, 3.0, (16, 100))).to(dtype)
+    solver = cns.Lbfgsb(m=5, lower=0.5, upper=4.0)
+    obj = cns.models.pairwise_rosenbrock()
+
+    def solve(x):
+        return cns.minimize_batched(obj, x, solver, device="cpu")
+
+    whole = solve(x0)
+    blocks = [solve(x0[:8]), solve(x0[8:])]
+    for name, get in (("status", lambda r: r.progress.status),
+                      ("nfev", lambda r: r.state.nfev),
+                      ("x", lambda r: r.state.x)):
+        assert torch.equal(get(whole), torch.cat([get(r) for r in blocks])), \
+            name
+    assert int(whole.progress.num_iterations.max()) > 5
+
+
+@pytest.mark.parametrize("k", [1, 2, 5, 10, 20, 63, 64, 130, 4097])
+def test_fixed_orders_do_not_depend_on_the_batch(k):
+    """``core.tree.fixed_sum`` and ``strided_sum``, the sums of the per-lane
+    products: a row's sum has the same bits alone and in a batch, is within
+    rounding of ``torch.sum``, and ``fixed_sum`` of a row shorter than 64 is
+    ``torch.sum``'s bit for bit."""
+    from cppnumericalsolvers_tpu_torch.core.tree import fixed_sum, strided_sum
+
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((9, k))
+                         * np.exp(3 * rng.standard_normal((9, k))))
+    want = x.sum(-1)
+    for total in (fixed_sum, strided_sum):
+        got = total(x)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(x.abs().sum(-1).max()))
+        for lane in (0, 4, 8):
+            assert torch.equal(total(x[lane:lane + 1]), got[lane:lane + 1])
+        assert torch.equal(total(x[None])[0], got)
+    if k < 64:
+        assert torch.equal(fixed_sum(x), want)
+
+
+@pytest.mark.parametrize("cap", [1, 64, 1000])
+@pytest.mark.parametrize("r,s,k", [(10, 10, 130), (20, 20, 4097), (3, 7, 5)])
+def test_sliced_products_equal_the_whole(cap, r, s, k, monkeypatch):
+    """``core.tree.lane_matvec`` and ``lane_gram`` take their rows in slices
+    whose elementwise product holds at most ``_PRODUCT_VALUES`` values (so
+    ``W_F^T W_F`` at a large n never materialises (B, 2m, 2m, n)); a slice
+    of any size gives every row the bits of the product taken whole, with
+    both sums, and they are within rounding of ``matmul``."""
+    from cppnumericalsolvers_tpu_torch.core import tree
+
+    rng = np.random.default_rng(r * k)
+    a = torch.from_numpy(rng.standard_normal((4, r, k)))
+    b = torch.from_numpy(rng.standard_normal((4, s, k)))
+    v = torch.from_numpy(rng.standard_normal((4, k)))
+    totals = (tree.fixed_sum,) + ((tree.strided_sum,) if k < 24 else ())
+    whole = {t: (tree.lane_matvec(a, v, t), tree.lane_gram(a, b, t))
+             for t in totals}
+    monkeypatch.setattr(tree, "_PRODUCT_VALUES", cap)
+    for t in totals:
+        assert torch.equal(tree.lane_matvec(a, v, t), whole[t][0])
+        assert torch.equal(tree.lane_gram(a, b, t), whole[t][1])
+    np.testing.assert_allclose(whole[tree.fixed_sum][0].numpy(),
+                               (a @ v[..., None])[..., 0].numpy(),
+                               rtol=1e-12, atol=1e-12 * k)
+    np.testing.assert_allclose(whole[tree.fixed_sum][1].numpy(),
+                               (a @ b.transpose(-1, -2)).numpy(),
+                               rtol=1e-12, atol=1e-12 * k)

@@ -175,8 +175,41 @@ def test_shape_validation(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_unshardable_solver_raises(runs, world):
+    """BFGS and L-BFGS-B stay refused, each message with its reason."""
     for r in runs[world]:
         assert "not model-sharded" in r["bfgs"]
+        assert "n x n inverse Hessian" in r["bfgs"]
+        assert "not model-sharded" in r["lbfgsb"]
+        assert "sorts the breakpoints over all of n" in r["lbfgsb"]
+
+
+@functools.lru_cache(maxsize=None)
+def jax_cg_quadratic():
+    res = jcns.minimize(
+        jcns.objective(ranks_quadratic_jax, mode="first"),
+        jnp.linspace(-2.0, 2.0, N), jcns.solvers.ConjugateGradientDescent())
+    return {"status": res.progress.status, "nfev": res.state.nfev,
+            "x": res.state.x, "value": res.state.value}
+
+
+def ranks_quadratic_jax(x):
+    """tests/test_model_sharded.py's quadratic (the ranks' ``quadratic``)."""
+    scale = 1.0 + jnp.arange(x.shape[-1], dtype=x.dtype) / x.shape[-1]
+    return jnp.sum(scale * x * x)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_conjugate_gradient_matches_jax(runs, world):
+    """Model-sharded conjugate gradient (its dot products through
+    ``core.tree.lane_sum``) against the JAX package's solve of the same
+    quadratic: status and nfev exact, x within 1e-8, the value within rtol
+    1e-10; every rank holds the same result, and the loop's collectives
+    are all-reduces of one scalar."""
+    want = jax_cg_quadratic()
+    for r in runs[world]:
+        assert_matches(r["cg"]["result"], want)
+        if world > 1:
+            assert set(in_loop(r["cg"])) == {("all_reduce", 1)}
 
 
 def in_loop(rec):

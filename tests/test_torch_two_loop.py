@@ -228,10 +228,13 @@ def test_wrappers_on_cpu_take_the_plain_versions_and_check_arguments():
     with pytest.raises(TypeError):
         ttl.two_loop_direction(g.half(), s.half(), y.half(), count,
                                gamma.half())
-    # q (n values) and O(m) scratch must fit a block's shared memory.
+    # The per-row scalars and the reduction scratch must fit a block's
+    # shared memory; q moves to device memory where it does not fit too.
     _kernel.lane_mapping("two_loop", 4, 4096, 10, 8)
+    assert _kernel.lane_mapping("two_loop", 4, 40000, 10, 8).rows == (
+        _kernel.ROWS_DEVICE_Q)
     with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping("two_loop", 4, 40000, 10, 8)
+        _kernel.lane_mapping("two_loop", 4, 40000, HUGE_M, 8)
 
 
 # The bare two-loop's lane mapping (ops/_kernel.py::lane_mapping), at the
@@ -239,9 +242,13 @@ def test_wrappers_on_cpu_take_the_plain_versions_and_check_arguments():
 # through its ring of four row pairs (8 n values) where that fits a block,
 # through the two row buffers (4 n values) where only those fit, and else
 # reads them in place (q and the per-row scalars only).
+# m whose per-row scalars alone overfill a block in float64.
+HUGE_M = 8000
+
 S, T, D, R, G = (_kernel.ROWS_STREAM, _kernel.ROWS_STAGED,
                  _kernel.ROWS_DIRECT, _kernel.ROWS_REGISTERS,
                  _kernel.ROWS_RING)
+Q = _kernel.ROWS_DEVICE_Q
 
 
 def pick(b, n, itemsize, m=10):
@@ -271,8 +278,9 @@ def test_two_loop_mapping_at_the_warp_and_register_boundaries(b, n, m, want,
 
 
 # (itemsize, the last n on the ring, the last n streamed, the last n in
-# place) at m = 10: the ring while (4 m + 9 n) values and the reduction
-# scratch fit SMEM_LIMIT, streamed while (4 m + 5 n) do.
+# place with q in shared memory) at m = 10: the ring while (4 m + 9 n)
+# values and the reduction scratch fit SMEM_LIMIT, streamed while (4 m +
+# 5 n) do, in place while (4 m + n) do; beyond, q in device memory.
 LIMITS = [(4, 6424, 11563, 57816), (8, 3195, 5752, 28760)]
 
 
@@ -293,9 +301,14 @@ def test_two_loop_mapping_at_the_row_mode_limits(itemsize, ring, stream,
     # The bare two-loop never stages its rows.
     for n in range(65, stream + 1, 97):
         assert pick(64, n, itemsize)[2] != T
-    # Past the reach of the rows read in place: raise, no fallback.
-    with pytest.raises(ValueError, match="shared memory"):
-        _kernel.lane_mapping("two_loop", 64, direct + 1, 10, itemsize)
+    # Past the reach of q in shared memory: q in device memory, the block's
+    # shared memory the per-row scalars and the reduction scratch alone.
+    for n in (direct + 1, 10 * direct):
+        mp = _kernel.lane_mapping("two_loop", 64, n, 10, itemsize)
+        assert mp.rows == Q and mp.threads_per_lane == 512
+        assert mp.smem_bytes == _kernel.lane_smem_bytes(
+            10, n, itemsize, Q, 1, False) == _kernel.lane_smem_bytes(
+            10, 1, itemsize, Q, 1, False)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])

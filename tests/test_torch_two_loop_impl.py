@@ -131,6 +131,45 @@ def test_xla_takes_the_generic_body_at_every_entry(monkeypatch):
     assert not solver.supports_solve_batched(obj)
 
 
+@pytest.mark.parametrize("dtype,reach", [(torch.float32, 57_816),
+                                         (torch.float64, 28_760)])
+def test_auto_routes_past_the_kernels_reach_to_the_plain_body(
+        dtype, reach, monkeypatch):
+    """One element past the reach of q in shared memory (``ROWS_DIRECT``)
+    the history kernels keep q in device memory (``ROWS_DEVICE_Q``), so
+    the default ``Lbfgs()`` goes to the kernels there as it does within
+    that reach (the flat solve's and the nested loop's shims fire), as the
+    JAX package's ``"auto"`` runs its float32 kernels at any n; only
+    ``two_loop_impl="xla"`` takes the plain body, launching nothing.  A
+    tiny batch, one iteration: the route is what is checked, not a solve
+    at that width."""
+    from cppnumericalsolvers_tpu_torch.ops import _kernel
+
+    obj = cns.models.extended_rosenbrock()
+    rng = np.random.default_rng(5)
+    stop = cns.default_stopping(dtype).replace(max_iterations=1)
+    auto = cns.Lbfgs()
+    past = torch.from_numpy(rng.uniform(-2.0, 2.0, (2, reach + 1))).to(dtype)
+    inside = past[:, :reach].contiguous()
+    w = past.element_size()
+    for op in ("flat_trip", "lbfgs_prologue", "push_two_loop", "two_loop"):
+        assert _kernel.lane_mapping(op, 2, reach + 1, 10, w).rows == (
+            _kernel.ROWS_DEVICE_Q), op
+        assert _kernel.lane_mapping(op, 2, reach, 10, w).rows != (
+            _kernel.ROWS_DEVICE_Q), op
+    assert auto.supports_solve_batched(obj)
+    with no_kernels(monkeypatch):
+        for x in (past, inside):
+            with pytest.raises(KernelCalled, match="flat_lbfgs_solve"):
+                cns.minimize_batched(obj, x, auto, stop, device="cpu")
+            with pytest.raises(KernelCalled, match="lbfgs_prologue"):
+                cns.minimize_batched(obj, x, auto, stop, trace=1,
+                                     device="cpu")
+        got = cns.minimize_batched(obj, past, cns.Lbfgs(two_loop_impl="xla"),
+                                   stop, device="cpu")
+    assert bool(torch.isfinite(got.state.value).all())
+
+
 def test_two_loop_impl_is_validated():
     with pytest.raises(ValueError, match="two_loop_impl"):
         cns.Lbfgs(two_loop_impl="pallas")

@@ -189,6 +189,10 @@ def model_suite(world, rank):
         rosenbrock_view, torch.zeros((N_MODEL,), dtype=torch.float64),
         cns.Lbfgs(), batch_axis="batch"))
     out["bfgs"] = caught(lambda: solve(rosenbrock_view, x_rosen, cns.Bfgs()))
+    out["lbfgsb"] = caught(lambda: solve(rosenbrock_view, x_rosen,
+                                         cns.Lbfgsb(m=5)))
+    out["cg"] = logged(lambda: solve(quadratic(scale), x_quad,
+                                     cns.ConjugateGradientDescent()))
     if world == 4:
         mesh2 = init_device_mesh("cpu", (2, 2),
                                  mesh_dim_names=("batch", "model"))
