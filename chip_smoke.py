@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py        # from the repository root; needs one GPU
 
-Nine paths, the first four through ``minimize_batched(objective, x0_batch,
+Ten paths, the first four through ``minimize_batched(objective, x0_batch,
 Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
 solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the
-seventh through the multi-device solves of ``parallel``, the last through
-the bench's calibrations:
+seventh through the examples and ``entry_torch.py``, the eighth through the
+multi-device solves of ``parallel``, the last through the bench's
+calibrations:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -35,12 +36,22 @@ the bench's calibrations:
   inner solve with ``Lbfgs`` runs ``lbfgs_prologue``, ``mt_trip`` and
   ``lbfgs_epilogue`` and with ``Lbfgsb`` the L-BFGS-B step (never
   ``flat_trip``); and the finite-difference checkers;
+* the examples (``examples_main``): every ``examples_torch`` module's
+  ``main`` on the card and on the CPU, each solve with the kernels it runs
+  (the quick-start's L-BFGS and the svm primal fit ``flat_trip``; gradient
+  descent, BFGS, L-BFGS-B and the dual fits ``mt_trip``; the AL solves with
+  ``Lbfgs`` inside ``lbfgs_prologue``, ``mt_trip``, ``lbfgs_epilogue``),
+  and ``examples_torch/pod_scale.py`` and ``entry_torch.dryrun_multichip``
+  in processes of their own (``chip_smoke.py --example-world-of-one DIR``,
+  ``--example-rank RANK 2 DIR``);
 * the multi-device solves (``parallel_main``): ``minimize_sharded``, whose
   ranks each run the flat solve (``flat_trip``) or L-BFGS-B (``mt_trip``)
   on their block of lanes, in a world of one under NCCL and on two gloo
   ranks sharing the card (``chip_smoke.py --parallel-rank``, processes of
   their own); ``minimize_model_sharded`` on ``Lbfgs(two_loop_impl="xla")``,
-  which runs no kernel, at n = 4,194,304 and 1,048,576 float64; and
+  which runs no kernel, at n = 4,194,304 and 1,048,576 float64, and on
+  ``Lbfgsb`` at n = 1,048,576 (its Cauchy walk merged over the ranks, no
+  kernel either); and
   ``two_loop_impl="xla"`` alone past the reach of q in shared memory, where
   the default ``"auto"`` runs ``flat_trip`` with q in device memory;
 * the calibrations of ``benchmarks_torch/roofline.py`` (``floors_main``):
@@ -100,12 +111,15 @@ Phases (each raises on failure, so the script then exits non-zero):
            clock and the device-to-host reads of each solve; kernels
            against plain versions, paths without a kernel against the
            same solve on the CPU.  L-BFGS-B at bench.py's shapes (and with
-           a box per lane), bench.py's AL leg and examples/constrained.py's
+           a box per lane), bench.py's AL leg and the constrained example's
            problems (``constrained_main``): launch counts, times, reads and
            Cauchy-walk passes; short float64 budgets exact against the
            plain versions and against the CPU; the checkers' booleans and
-           values against the CPU's.  The multi-device solves
-           (``parallel_main``, parts (a)-(d) of the comment above
+           values against the CPU's.  The examples (``examples_main``):
+           each module's figures on the card against the CPU's, each
+           solve's launches, pod_scale and the dry runs in their own
+           processes.  The multi-device solves
+           (``parallel_main``, parts (a)-(e) of the comment above
            PARALLEL_SHAPES): bit-equality with the unsharded solves,
            launch counts, the collectives inside each loop and after it
            (``parallel.comm.CollectiveLog``), walls and reads; L-BFGS-B
@@ -168,7 +182,11 @@ EDGE_STOPPING = dict(past=0, f_delta=1e-3, f_delta_violations=2,
                      max_iterations=40)
 NESTED_CUT = 10                 # max_iterations of the cut solve
 NESTED_TRACE = 16               # trace capacity on the main path
-NESTED_TIMED_ITERATIONS = 40    # depth of the spin-padded nested solves
+# Depth of the spin-padded nested solves, kernel and plain alike, and of
+# the flat solve's timed plain version: 20 iterations, so that the script
+# fits its time limit on a slow host with every parity shape.  At 40
+# the prologue's and the epilogue's means a launch differ (PERF.md §6).
+NESTED_TIMED_ITERATIONS = 20
 # The batch-minor loop (path A) and the routing measurement.
 T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
 # The batch-minor loop is also held against its plain versions where n is
@@ -247,8 +265,8 @@ SUITE_CONVERGED_MIN = 0.95
 # The other unconstrained solvers and searches (solvers_main) at bench.py's
 # solver-leg shapes, and the constrained layer's legs (constrained_main):
 # benchmarks_torch/legs.py holds their tables, shared with bench_torch.py.
-# constrained_main also runs examples/constrained.py's two problems from 64
-# starts with L-BFGS-B inside, and the checkers at n = 32 and 64.
+# constrained_main also runs examples_torch/constrained.py's two problems
+# from 64 starts with L-BFGS-B inside, and the checkers at n = 32 and 64.
 from benchmarks_torch.legs import (  # noqa: E402
     AL_LEG, AL_LEG_BUDGET, LANE_BOXES, LBFGSB_BOX, LBFGSB_RUNS, SOLVER_RUNS,
     al_leg_problem)
@@ -360,6 +378,32 @@ BLOCK_PAIR_SHAPE = (8, 4096)
 BLOCK_DENSE = ("bfgs", "newton", "tr")
 PARALLEL_RANKS = 2
 PARALLEL_RANK_TIMEOUT = 400
+# The side process (``chip_smoke.py --side DIR``), started right after the
+# build and run beside the parity phase on the same card: the plain
+# version's passes over the MGH-376 suite that suite_main holds the
+# kernel's statuses to, and part (b)'s block-against-batch checks
+# (block_checks).  Neither launches a kernel that a count reads.
+SIDE_TIMEOUT = 900
+# (e) minimize_model_sharded on Lbfgsb(m=5, lower=0.5, upper=4.0) in a world
+#     of one under NCCL, the view-form extended Rosenbrock at n = 1,048,576
+#     float64, cut at MODEL_LBFGSB_CUT iterations, against the unsharded
+#     Lbfgsb on the card at the same cut: status, nfev and iterations equal,
+#     x within MODEL_LBFGSB_XTOL; no launch, the Cauchy passes and the
+#     collectives an iteration recorded.  The start is 1 everywhere (the
+#     optimum: a zero gradient, so no breakpoint) but for every
+#     MODEL_LBFGSB_EVERY-th pair, drawn from [1, 3] from seed 0: from [1, 3]
+#     everywhere the first walk crosses all but a few of n breakpoints, one
+#     pass (two collectives and one read) each (4,087 of 4,096 at n = 4096
+#     on the CPU), which at n = 1,048,576 would take hours; this start
+#     crosses two a drawn pair in the first iteration and none after
+#     (measured on the CPU at n = 4096 and 65,536).  The same solve on
+#     part (b)'s two gloo ranks (the walk's heads merged over two shards)
+#     is held to the world of one: status, nfev and iterations equal, x
+#     within MODEL_LBFGSB_XTOL.
+MODEL_LBFGSB_N = 1_048_576
+MODEL_LBFGSB_EVERY = 512
+MODEL_LBFGSB_CUT = 10
+MODEL_LBFGSB_XTOL = 1e-12
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # The calibration kernels (floors_main): launches each kernel is held to its
@@ -375,6 +419,38 @@ FLOOR_TIMED_PLAIN_CALLS = 50
 DRIFT_AT = {"flat_trip": (1024, 100), "lbfgs_prologue": (1024, 1024),
             "lbfgs_epilogue": (1024, 1024), "lbfgs_prologue_t": (512, 2048),
             "push_two_loop": (1024, 32)}
+
+
+# The examples (examples_main): each examples_torch module's main("cuda"),
+# held against its main("cpu"): float64 statuses equal, nfev within
+# EXAMPLE_NFEV, iterations, x and f within EXAMPLE_TOL (the parity contract
+# on full solves); linear_regression's float32 w within its own 5e-3 and
+# statuses equal where the solve is not AL.  Each solve's launches: the
+# kernels named here launch (flat_trip: once a trip), every other none.
+EXAMPLE_MODULES = ("quickstart", "trust_region_rosenbrock", "expressions_tour",
+                   "linear_regression", "constrained", "svm")
+EXAMPLE_NFEV = 3
+EXAMPLE_TOL = 1e-6
+EXAMPLE_F32_TOL = 5e-3
+NESTED = ("lbfgs_prologue", "mt_trip", "lbfgs_epilogue")
+EXAMPLE_LAUNCHES = {
+    "quickstart": {"lbfgs": ("flat_trip",), "gd": ("mt_trip",),
+                   "bfgs": ("mt_trip",), "lbfgsb": ("mt_trip",)},
+    # L-BFGS-B pins both of w's coordinates in its first walk, so every
+    # step takes the Cauchy point with one evaluation and no search trip.
+    "linear_regression": {"free": ("flat_trip",), "lbfgsb": (), "al": NESTED},
+    "constrained": {"quadratic": NESTED, "circle": NESTED},
+    "svm": {"primal-lbfgs": ("flat_trip",), "primal-al": NESTED,
+            "dual-lbfgsb": ("mt_trip",), "dual-al": ("mt_trip",)},
+}
+#: The float32 examples' solves that are not AL (statuses held).
+EXAMPLE_F32_STATUS = {"linear_regression": ("free", "lbfgsb")}
+# pod_scale and entry_torch.dryrun_multichip(1) in a world of one under
+# NCCL, dryrun_multichip(2) on two gloo ranks sharing the card: processes of
+# their own, started first; what each must launch on the card.
+EXAMPLE_RANK_TIMEOUT = 300
+DRYRUN_LAUNCHES = {"lbfgs": ("flat_trip",), "lbfgsb": ("mt_trip",),
+                   "al": NESTED, "mesh_2d": ()}
 
 
 def log(msg: str) -> None:
@@ -500,7 +576,13 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    record = {}
+    record = {"marks": []}
+    t_start = time.perf_counter()
+
+    def mark(label):
+        """Seconds since the start at the end of each phase (the record's
+        ``marks``): where the script's time limit goes."""
+        record["marks"].append([label, time.perf_counter() - t_start])
 
     # 1. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -517,6 +599,9 @@ def main() -> int:
             log(f"[build] {name} {fn}: {regs} registers, {stores} bytes "
                 f"spill stores, {loads} bytes spill loads, {stack} bytes "
                 "stack frame")
+
+    mark("build")
+    side = start_side()
 
     # 2. card ---------------------------------------------------------------
     card = card_line()
@@ -650,6 +735,7 @@ def main() -> int:
             if (shape == DEVICE_Q_SHAPE) != all(
                     v == mods.K.ROWS_DEVICE_Q for v in rows.values()):
                 raise AssertionError(f"reach ({shape}) {dname}: rows {rows}")
+    mark("parity")
     record["drift"] = {name: d.result() for name, d in drift.items()}
     for name, r in record["drift"].items():
         log(f"[drift] {name} float32 {tuple(r['shape'])}: relative "
@@ -740,6 +826,7 @@ def main() -> int:
     if err > 1e-4 or fs.flat_trip.launches == 0:
         raise AssertionError("minimize did not reach the 2-D optimum")
 
+    mark("main flat")
     nested_rows = []
     for b, n in NESTED_SHAPES:
         row = nested_main(mods, obj, start(b, n, torch.float32), solver,
@@ -768,11 +855,16 @@ def main() -> int:
         path_b_rows.append(row)
     record["path_b"] = path_b_rows
 
+    mark("nested, paths A and B")
     record["path_c"] = path_c_main(mods)
     for name, count in record["path_c"]["launches"].items():
         main_launches[name] += count
 
-    record["suite"] = suite_main(mods)
+    t0 = time.perf_counter()
+    side = wait_side(side)
+    record["side_wait_s"] = time.perf_counter() - t0
+    log(f"[main] waited {record['side_wait_s']:.1f} s for the side process")
+    record["suite"] = suite_main(mods, side["suite_plain"])
     for name, count in record["suite"]["launches"].items():
         main_launches[name] += count
 
@@ -783,21 +875,40 @@ def main() -> int:
             main_launches[name] += count
     record["solvers_phase_s"] = time.perf_counter() - t0
     log(f"[main] solvers: {record['solvers_phase_s']:.1f} s")
+    mark("path C, suite, solvers")
 
     t0 = time.perf_counter()
-    record["constrained"] = constrained_main(mods, dev)
-    for name, count in record["constrained"]["launches"].items():
-        main_launches[name] += count
-    record["constrained_phase_s"] = time.perf_counter() - t0
-    log(f"[main] constrained: {record['constrained_phase_s']:.1f} s")
+    rank_procs = start_parallel_ranks()
+    try:
+        record["constrained"] = constrained_main(mods, dev)
+        for name, count in record["constrained"]["launches"].items():
+            main_launches[name] += count
+        record["constrained_phase_s"] = time.perf_counter() - t0
+        log(f"[main] constrained: {record['constrained_phase_s']:.1f} s")
+        mark("constrained")
 
-    t0 = time.perf_counter()
-    record["parallel"] = parallel_main(mods, dev)
+        t0 = time.perf_counter()
+        record["examples"] = examples_main(mods, dev)
+        for name, count in record["examples"]["launches"].items():
+            main_launches[name] += count
+        record["examples_phase_s"] = time.perf_counter() - t0
+        log(f"[main] examples: {record['examples_phase_s']:.1f} s")
+        mark("examples")
+
+        t0 = time.perf_counter()
+        record["parallel"] = parallel_main(mods, dev, rank_procs,
+                                           side["blocks"])
+    finally:
+        for p in rank_procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for name, count in record["parallel"]["launches"].items():
         main_launches[name] += count
     record["parallel_phase_s"] = time.perf_counter() - t0
     log(f"[main] parallel: {record['parallel_phase_s']:.1f} s "
-        f"(ranks {record['parallel']['ranks_s']:.1f} s)")
+        f"(waiting for the ranks {record['parallel']['ranks_s']:.1f} s)")
+    mark("parallel")
 
     t0 = time.perf_counter()
     record["floors"] = floors_main(mods, dev)
@@ -807,6 +918,7 @@ def main() -> int:
         max_abs_err[name] = max(max_abs_err[name], k["max_abs_err"])
     record["floors_phase_s"] = time.perf_counter() - t0
     log(f"[main] floors: {record['floors_phase_s']:.1f} s")
+    mark("floors")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -823,6 +935,7 @@ def main() -> int:
             f"{row['padded_calls']}")
         log("[shape] " + json.dumps(row))
     record["shapes"] = shapes
+    mark("flat timing")
 
     for row in nested_rows:
         b, n = row["shape"]
@@ -845,6 +958,7 @@ def main() -> int:
             f"({row['flat_trips']} evaluations)")
         log("[nested] " + json.dumps(row))
     record["nested"] = nested_rows
+    mark("nested timing")
 
     routing_rows = []
     for b, n in T_SHAPES:
@@ -853,6 +967,7 @@ def main() -> int:
         routing_rows.append(routing(
             mods, obj, start(b, n, torch.float32), solver, stop32, known))
     record["routing"] = routing_rows
+    mark("routing")
 
     op_rows = {"push_two_loop": [op_timing(mods, "push_two_loop", b, n)
                                  for b, n in PUSH_SHAPES],
@@ -866,6 +981,7 @@ def main() -> int:
                 f"({r['bound_by']}); starved timed calls "
                 f"{r['starved_calls']} of {r['padded_calls']}")
     record["op_timing"] = op_rows
+    mark("op timing")
 
     # 6. report ---------------------------------------------------------------
     head = next(r for r in shapes if tuple(r["shape"]) == HEADLINE_SHAPE)
@@ -2509,15 +2625,11 @@ def path_c_main(mods) -> dict:
     return {"launches": launches, "max_scaled_err_vs_float64": worst}
 
 
-def suite_main(mods) -> dict:
-    """The MGH-376 suite through ``suite_bench.single_solve`` (every
-    instance a fresh ``minimize_batched`` in float32, the problems with a
-    failed instance again in float64), launch counts set to 0 just before
-    and read just after: only ``flat_trip`` may launch, once per trip.  Then
-    each pass's problems through the plain version on the card: the
-    kernel's statuses must equal the plain version's on every float64 lane
-    and on at least 99% of the float32 lanes, and the single solve must
-    converge on at least SUITE_CONVERGED_MIN of the 376."""
+def suite_plain(mods, dname, indices=None) -> dict:
+    """The plain version's solve of the MGH-376 suite's problems
+    ``indices`` (every one: None) in ``dname``, as ``suite_bench``'s single
+    solve runs them but with ``flat_trip_reference`` for the kernel: by
+    problem index, the lanes' statuses and whether each succeeded."""
     import torch
 
     import suite_bench
@@ -2525,6 +2637,54 @@ def suite_main(mods) -> dict:
         mgh_benchmark_instances, success_mask)
 
     cns, fs = mods.cns, mods.fs
+    dtype = getattr(torch, dname)
+    solver = suite_bench.reliability_solver(cns)
+    stop = suite_bench.reliability_stopping(cns, dtype)
+    batches = (mgh_benchmark_instances(dtype_str="float32")
+               if dname == "float32" else mgh_benchmark_instances())
+    out = {}
+    for i, (problem, starts) in enumerate(batches):
+        if indices is not None and i not in indices:
+            continue
+        x0 = torch.from_numpy(starts).to(device=torch.device("cuda"),
+                                         dtype=dtype)
+        pres = fs.flat_lbfgs_solve(
+            problem.objective, problem.objective.evaluate(x0), stop,
+            m=solver.m, max_fev=solver.max_linesearch_fev,
+            trip=fs.flat_trip_reference)
+        out[i] = (pres.progress.status.cpu().numpy(), success_mask(
+            problem, pres.state.value.double().cpu().numpy(),
+            pres.state.gradient.abs().amax(-1).double().cpu().numpy(),
+            pres.state.x.abs().amax(-1).double().cpu().numpy()))
+    return out
+
+
+def suite_plain_passes(mods) -> dict:
+    """The side process's share of ``suite_main``: :func:`suite_plain` in
+    float32 over every problem, then in float64 over the problems with a
+    lane that failed in float32 (the single solve's rule, on the plain
+    version's lanes; ``suite_main`` solves any other problem the kernel's
+    pass sent to float64 itself)."""
+    f32 = suite_plain(mods, "float32")
+    again = {i for i, (_, ok) in f32.items() if not ok.all()}
+    return {"float32": f32, "float64": suite_plain(mods, "float64", again)}
+
+
+def suite_main(mods, plain) -> dict:
+    """The MGH-376 suite through ``suite_bench.single_solve`` (every
+    instance a fresh ``minimize_batched`` in float32, the problems with a
+    failed instance again in float64), launch counts set to 0 just before
+    and read just after: only ``flat_trip`` may launch, once per trip.  Then
+    each pass's problems through the plain version on the card (``plain``:
+    :func:`suite_plain_passes`, from the side process): the kernel's
+    statuses must equal the plain version's on every float64 lane and on
+    at least 99% of the float32 lanes, and the single solve must converge
+    on at least SUITE_CONVERGED_MIN of the 376."""
+    import torch
+
+    import suite_bench
+
+    fs = mods.fs
     torch.cuda.synchronize()
     fs.flat_trip.launches = 0
     for fn in mods.wrappers.values():
@@ -2549,40 +2709,31 @@ def suite_main(mods) -> dict:
            "solved_in_float32": sum(int(r["ok"].sum())
                                     for r in run["float32"]),
            "problems_in_float64": len(run["float64"])}
-    solver = suite_bench.reliability_solver(cns)
-    passes = {
-        "float32": (mgh_benchmark_instances(dtype_str="float32"),
-                    run["float32"]),
-        "float64": ([mgh_benchmark_instances()[i] for i in run["float64"]],
-                    list(run["float64"].values())),
-    }
-    for dname, (batches, recs) in passes.items():
-        dtype = getattr(torch, dname)
-        stop = suite_bench.reliability_stopping(cns, dtype)
+    from cppnumericalsolvers_tpu_torch.models import mgh_benchmark_instances
+
+    names = [p.name for p, _ in mgh_benchmark_instances(dtype_str="float32")]
+    missing = set(run["float64"]) - set(plain["float64"])
+    row["float64_solved_here"] = sorted(missing)
+    plain = {"float32": plain["float32"],
+             "float64": {**plain["float64"],
+                         **suite_plain(mods, "float64", missing)}}
+    passes = {"float32": dict(enumerate(run["float32"])),
+              "float64": run["float64"]}
+    for dname, recs in passes.items():
         lanes = mism = plain_ok = 0
         differing = []
-        for (problem, starts), rec in zip(batches, recs):
-            x0 = torch.from_numpy(starts).to(device=torch.device("cuda"),
-                                             dtype=dtype)
-
-            pres = fs.flat_lbfgs_solve(
-                problem.objective, problem.objective.evaluate(x0), stop,
-                m=solver.m, max_fev=solver.max_linesearch_fev,
-                trip=fs.flat_trip_reference)
-            ps = pres.progress.status.cpu().numpy()
+        for i, rec in recs.items():
+            ps, ok = plain[dname][i]
             lanes += ps.size
             mism += int((rec["status"] != ps).sum())
-            plain_ok += int(success_mask(
-                problem, pres.state.value.double().cpu().numpy(),
-                pres.state.gradient.abs().amax(-1).double().cpu().numpy(),
-                pres.state.x.abs().amax(-1).double().cpu().numpy()).sum())
+            plain_ok += int(ok.sum())
             if (rec["status"] != ps).any():
-                differing.append(problem.name)
+                differing.append(names[i])
         agree = 1.0 - mism / max(lanes, 1)
         row[dname] = {"lanes": lanes, "status_mismatches": mism,
                       "status_agreement": agree,
                       "kernel_converged": sum(int(r["ok"].sum())
-                                              for r in recs),
+                                              for r in recs.values()),
                       "plain_converged": plain_ok,
                       "problems_differing": differing}
         log(f"[main] suite {dname}: {lanes} lanes of {len(recs)} problems; "
@@ -2597,7 +2748,8 @@ def suite_main(mods) -> dict:
         f"({row['solved_in_float32']} in float32, {len(run['float64'])} "
         f"problems again in float64), launches {launches}, wall "
         f"{wall:.1f} s; the phase with the plain versions "
-        f"{row['phase_wall_s']:.1f} s")
+        f"{row['phase_wall_s']:.1f} s (float64 plain solves of "
+        f"{len(missing)} problems here, the rest in the side process)")
     if converged < SUITE_CONVERGED_MIN * total:
         raise AssertionError(f"suite: converged {converged}/{total}")
     return row
@@ -2810,22 +2962,6 @@ def _short_ok(same, tol, nfev_lanes=0) -> bool:
             and max(same["max_abs_diff"].values()) <= tol)
 
 
-def _al_examples(cns):
-    """examples/constrained.py's two problems with their analytic optima:
-    a quadratic with one equality and one inequality, (0.5, 1.5); a linear
-    objective on the circle x0^2 + x1^2 = 2, (-1, -1)."""
-    o = cns.objective
-    quadratic = cns.ConstrainedProblem(
-        o(lambda x: (x[0] - 1.0) ** 2 + (x[1] - 2.0) ** 2, mode="second"),
-        (o(lambda x: x[0] + x[1] - 2.0, mode="second"),),
-        (o(lambda x: x[1] - x[0] - 1.0, mode="second"),))
-    circle = cns.ConstrainedProblem(
-        o(lambda x: x[0] + x[1], mode="second"),
-        (o(lambda x: x[0] ** 2 + x[1] ** 2 - 2.0, mode="second"),))
-    return {"quadratic": (quadratic, (0.5, 1.5)),
-            "circle": (circle, (-1.0, -1.0))}
-
-
 def constrained_main(mods, dev) -> dict:
     """L-BFGS-B, the augmented-Lagrangian layer and the finite-difference
     checkers on the card (the ``constrained_main`` phase):
@@ -2839,7 +2975,8 @@ def constrained_main(mods, dev) -> dict:
       leg, 64 lanes at n = 4096, float32, 10 outer iterations of at most 40
       inner ones;
     * ``AugmentedLagrangian(inner_solver=Lbfgsb(m=5, lower=-3, upper=3))``
-      on examples/constrained.py's two problems, 64 starts each, float64,
+      on examples_torch/constrained.py's two problems (``problems()``, the
+      JAX example's), 64 starts each, float64,
       to their own stop: every lane on the analytic optimum within 1e-3;
     * the checkers on the pairwise Rosenbrock at n = 32 and 64, float64.
 
@@ -2976,7 +3113,9 @@ def constrained_main(mods, dev) -> dict:
     def al_runs():
         yield ("bench_leg_lbfgs", leg, cns.Lbfgs(m=M), starts(b, n), outer,
                inner_cap, torch.float32, None)
-        for name, (problem, optimum) in _al_examples(cns).items():
+        from examples_torch import constrained
+
+        for name, (problem, optimum) in constrained.problems().items():
             yield (f"example_{name}_lbfgsb", problem,
                    cns.Lbfgsb(m=5, lower=AL_EXAMPLE_BOX[0],
                               upper=AL_EXAMPLE_BOX[1]),
@@ -3359,8 +3498,9 @@ def pair_cases(cns, dev):
 def parallel_rank(rank: int, world: int, where: str) -> int:
     """One of part (b)'s gloo ranks (``chip_smoke.py --parallel-rank RANK
     WORLD DIR``), on card 0 with every other rank: the batch-sharded solves
-    of :func:`pair_cases`, then the model-sharded solve at MODEL_PAIR_N
-    (timed, then again under the collective log).  Writes its record to
+    of :func:`pair_cases`, then the model-sharded solves of part (c) at
+    MODEL_PAIR_N and of part (e) (:func:`model_lbfgsb_case`), each timed,
+    then again under the collective log.  Writes its record to
     ``DIR/rank{RANK}.pt``."""
     import torch
     import torch.distributed as dist
@@ -3408,29 +3548,57 @@ def parallel_rank(rank: int, world: int, where: str) -> int:
                         "reads": any_lane.reads - reads0}
         del res
         _, rec["model"]["collectives"] = logged_call(model_solve)
+
+        x0, _, solver, stop = model_lbfgsb_case(cns, dev)
+
+        def lbfgsb_solve():
+            return parallel.minimize_model_sharded(
+                cns.objective(rosenbrock_view), x0, solver, stop,
+                mesh=model_mesh, device=dev)
+
+        zero_launches(mods)
+        reads0 = any_lane.reads
+        passes0 = mods.lbb.generalized_cauchy_point.passes
+        res, wall = timed_call(lbfgsb_solve)
+        rec["model_lbfgsb"] = {
+            "result": host_summary(res), "launches": launch_counts(mods),
+            "wall_s": wall, "reads": any_lane.reads - reads0,
+            "passes": mods.lbb.generalized_cauchy_point.passes - passes0}
+        del res
+        _, rec["model_lbfgsb"]["collectives"] = logged_call(lbfgsb_solve)
     finally:
         dist.destroy_process_group()
     torch.save(rec, os.path.join(where, f"rank{rank}.pt"))
     return 0
 
 
-def run_parallel_ranks(where: str) -> list:
-    """Start PARALLEL_RANKS rank processes (:func:`parallel_rank`) on card
-    0, wait for all of them, and return their records.  A rank that fails
-    or outlasts PARALLEL_RANK_TIMEOUT fails the phase; every process is
-    stopped before this returns."""
-    import shutil
+PARALLEL_RANKS_DIR = os.path.join(ROOT, "build", "parallel_ranks")
 
-    import torch
+
+def start_parallel_ranks(where: str = PARALLEL_RANKS_DIR) -> list:
+    """Start PARALLEL_RANKS rank processes (:func:`parallel_rank`) on card
+    0; :func:`wait_parallel_ranks` collects them.  ``main`` starts them
+    with the constrained phase, so that their minute and a half overlaps
+    it and the examples phase (whose processes also run beside it): the
+    walls of both phases are taken beside them."""
+    import shutil
 
     shutil.rmtree(where, ignore_errors=True)
     os.makedirs(where)
     env = {**os.environ, "LOCAL_RANK": "0", "OMP_NUM_THREADS": "1"}
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--parallel-rank",
          str(r), str(PARALLEL_RANKS), where],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(PARALLEL_RANKS)]
+
+
+def wait_parallel_ranks(procs, where: str = PARALLEL_RANKS_DIR) -> list:
+    """Wait for the rank processes and return their records.  A rank that
+    fails or outlasts PARALLEL_RANK_TIMEOUT fails the phase; every process
+    is stopped before this returns."""
+    import torch
+
     outs = []
     deadline = time.perf_counter() + PARALLEL_RANK_TIMEOUT
     try:
@@ -3450,6 +3618,79 @@ def run_parallel_ranks(where: str) -> list:
         raise AssertionError(f"parallel ranks {failed} failed")
     return [torch.load(os.path.join(where, f"rank{r}.pt"),
                        weights_only=False) for r in range(PARALLEL_RANKS)]
+
+
+SIDE_DIR = os.path.join(ROOT, "build", "side")
+
+
+def side_process(where: str) -> int:
+    """The side process (``chip_smoke.py --side DIR``; see SIDE_TIMEOUT):
+    :func:`suite_plain_passes`, then :func:`block_checks`, each raising on
+    failure; writes ``DIR/side.pt``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    mods = Mods()
+    rec = {}
+    t0 = time.perf_counter()
+    rec["suite_plain"] = suite_plain_passes(mods)
+    rec["suite_plain_s"] = time.perf_counter() - t0
+    log(f"[side] the plain version's suite passes: "
+        f"{rec['suite_plain_s']:.1f} s")
+    t0 = time.perf_counter()
+    rec["blocks"] = block_checks(mods, torch.device("cuda"))
+    rec["blocks_s"] = time.perf_counter() - t0
+    log(f"[side] block checks: {rec['blocks_s']:.1f} s")
+    torch.save(rec, os.path.join(where, "side.pt"))
+    return 0
+
+
+def start_side(where: str = SIDE_DIR):
+    """Start the side process on card 0, its output to ``DIR/side.log``;
+    it is stopped at exit if :func:`wait_side` has not collected it."""
+    import atexit
+    import shutil
+
+    shutil.rmtree(where, ignore_errors=True)
+    os.makedirs(where)
+    out = open(os.path.join(where, "side.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--side", where],
+        cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"}, stdout=out,
+        stderr=subprocess.STDOUT, text=True)
+    out.close()
+    proc.started = time.perf_counter()
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc
+
+
+def wait_side(proc, where: str = SIDE_DIR) -> dict:
+    """The side process's record, once it has ended (SIDE_TIMEOUT after it
+    started at the latest), its log repeated here; raises if it failed."""
+    import torch
+
+    try:
+        proc.wait(timeout=max(1.0, proc.started + SIDE_TIMEOUT
+                              - time.perf_counter()))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(os.path.join(where, "side.log")) as f:
+        text = f.read()
+    for line in text.splitlines():
+        if line.startswith("["):
+            log(line)
+    if proc.returncode != 0:
+        log(f"[side] exited {proc.returncode}:\n" + text[-4000:])
+        raise AssertionError("the side process failed")
+    return torch.load(os.path.join(where, "side.pt"), weights_only=False)
 
 
 def _lane_leaves(res) -> int:
@@ -4030,12 +4271,506 @@ def floors_main(mods, dev) -> dict:
     return rec
 
 
-def parallel_main(mods, dev) -> dict:
-    """The multi-device solves (the ``parallel_main`` phase): parts (a)-(d)
+def model_lbfgsb_case(cns, dev):
+    """Part (e)'s solve: ``(x0, drawn pairs, solver, stopping)``; see
+    MODEL_LBFGSB_N."""
+    import numpy as np
+    import torch
+
+    n = MODEL_LBFGSB_N
+    x = np.ones(n)
+    pairs = np.arange(0, n // 2, MODEL_LBFGSB_EVERY)
+    x.reshape(-1, 2)[pairs] = np.random.default_rng(SEED).uniform(
+        *PARALLEL_BOX_STARTS, (len(pairs), 2))
+    solver = cns.Lbfgsb(m=5, lower=PARALLEL_BOX[0], upper=PARALLEL_BOX[1])
+    stop = solver.default_stopping(torch.float64).replace(
+        max_iterations=MODEL_LBFGSB_CUT)
+    return torch.from_numpy(x).to(dev), len(pairs), solver, stop
+
+
+@contextlib.contextmanager
+def walk_passes(lbb):
+    """The Cauchy passes of each walk that ``Lbfgsb.step`` runs inside the
+    context, in order (a list filled as the walks end)."""
+    walk = lbb.generalized_cauchy_point
+    walks = []
+
+    def counted(*args, **kwargs):
+        # The walk's body counts its passes on the module's name for it,
+        # which is this function inside the context.
+        start = counted.passes
+        out = walk(*args, **kwargs)
+        walks.append(counted.passes - start)
+        return out
+
+    counted.passes = walk.passes
+    lbb.generalized_cauchy_point = counted
+    try:
+        yield walks
+    finally:
+        walk.passes = counted.passes
+        lbb.generalized_cauchy_point = walk
+
+
+def parallel_model_lbfgsb(mods, mesh, dev):
+    """Part (e); see MODEL_LBFGSB_N.  Returns the record and the model-
+    sharded result's host summary."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch import parallel
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    cns, lbb = mods.cns, mods.lbb
+    n = MODEL_LBFGSB_N
+    x0, drawn, solver, stop = model_lbfgsb_case(cns, dev)
+    mobj = cns.objective(rosenbrock_view)
+    row = {"n": n, "dtype": "float64", "ranks": 1, "backend": "nccl",
+           "drawn_pairs": drawn, "cut": MODEL_LBFGSB_CUT}
+
+    def counted(fn):
+        zero_launches(mods)
+        passes0, reads0 = lbb.generalized_cauchy_point.passes, any_lane.reads
+        out, wall = timed_call(fn)
+        return (host_summary(out), wall, launch_counts(mods),
+                lbb.generalized_cauchy_point.passes - passes0,
+                any_lane.reads - reads0)
+
+    ref, row["unsharded_wall_s"], row["unsharded_launches"], \
+        row["unsharded_passes"], row["unsharded_reads"] = counted(
+            lambda: cns.minimize(mobj, x0, solver, stop))
+
+    def solve():
+        return parallel.minimize_model_sharded(
+            mobj, x0, solver, stop, mesh=mesh, device=dev)
+
+    with walk_passes(lbb) as walks:
+        got, row["wall_s"], row["launches"], row["passes"], row["reads"] = (
+            counted(solve))
+    row["passes_by_walk"] = walks
+    _, row["collectives"] = logged_call(solve)
+    its = int(got["iterations"])
+    in_loop = row["collectives"]["in_loop"]
+    row.update(
+        iterations=its, nfev=int(got["nfev"]), status=int(got["status"]),
+        value=float(got["value"]),
+        unsharded=dict(iterations=int(ref["iterations"]),
+                       nfev=int(ref["nfev"]), status=int(ref["status"])),
+        x_max_abs_diff=float((got["x"] - ref["x"]).abs().max()),
+        passes_per_iteration=row["passes"] / max(its, 1),
+        passes_first_iteration=walks[0],
+        passes_per_later_iteration=sum(walks[1:]) / max(len(walks) - 1, 1),
+        reads_per_iteration=row["reads"] / max(its, 1),
+        all_reduces_per_iteration=sum(
+            v for k, v in in_loop.items() if k.startswith("all_reduce"))
+        / max(its, 1),
+        all_gathers_per_iteration=sum(
+            v for k, v in in_loop.items() if k.startswith("all_gather"))
+        / max(its, 1))
+    log(f"[parallel] (e) model-sharded Lbfgsb, world of one, NCCL, n = {n} "
+        f"float64, cut {MODEL_LBFGSB_CUT}: {its} iterations, nfev "
+        f"{row['nfev']}, status {row['status']} (unsharded {row['unsharded']}"
+        f"), |x - x_unsharded| {row['x_max_abs_diff']:.3e}; "
+        f"{row['passes']} Cauchy passes ({row['passes_per_iteration']:.1f} an "
+        f"iteration: {walks[0]} in the first, "
+        f"{row['passes_per_later_iteration']:.2f} in each of the "
+        f"{len(walks) - 1} others; unsharded {row['unsharded_passes']}), "
+        f"{row['all_reduces_per_iteration']:.1f} all-reduces and "
+        f"{row['all_gathers_per_iteration']:.1f} all-gathers an iteration, "
+        f"{row['reads_per_iteration']:.1f} reads an iteration; wall "
+        f"{row['wall_s']:.3f} s (unsharded {row['unsharded_wall_s']:.3f} s, "
+        f"launches {row['unsharded_launches']}); collectives in the loop "
+        f"{in_loop}")
+    same = (row["status"] == row["unsharded"]["status"]
+            and row["nfev"] == row["unsharded"]["nfev"]
+            and its == row["unsharded"]["iterations"])
+    if (not same or row["x_max_abs_diff"] > MODEL_LBFGSB_XTOL
+            or any(row["launches"].values()) or row["passes"] == 0
+            or row["unsharded_launches"]["mt_trip"] == 0
+            or sum(walks) != row["passes"]):
+        raise AssertionError(f"(e): {row}")
+    return row, got
+
+
+def parallel_model_lbfgsb_pair_check(ranks, one) -> dict:
+    """Part (e) on part (b)'s two gloo ranks against the world of one
+    (``one``, its host summary): status, nfev and iterations equal on every
+    rank, x within MODEL_LBFGSB_XTOL, no launch, and in the loop only the
+    walk's all-gathers and the all-reduces."""
+    got = ranks[0]["model_lbfgsb"]["result"]
+    its = int(got["iterations"])
+    in_loop = ranks[0]["model_lbfgsb"]["collectives"]["in_loop"]
+    row = {"n": MODEL_LBFGSB_N, "dtype": "float64", "ranks": PARALLEL_RANKS,
+           "backend": "gloo", "iterations": its, "nfev": int(got["nfev"]),
+           "status": int(got["status"]),
+           "x_max_abs_diff": max(
+               float((r["model_lbfgsb"]["result"]["x"] - one["x"])
+                     .abs().max()) for r in ranks),
+           "passes": ranks[0]["model_lbfgsb"]["passes"],
+           "wall_s_by_rank": [r["model_lbfgsb"]["wall_s"] for r in ranks],
+           "reads_per_iteration": ranks[0]["model_lbfgsb"]["reads"]
+           / max(its, 1),
+           "launches_by_rank": [r["model_lbfgsb"]["launches"]
+                                for r in ranks],
+           "collectives_by_rank": [r["model_lbfgsb"]["collectives"]
+                                   for r in ranks]}
+    row["all_reduces_per_iteration"] = sum(
+        v for k, v in in_loop.items() if k.startswith("all_reduce")) / max(
+            its, 1)
+    row["all_gathers_per_iteration"] = sum(
+        v for k, v in in_loop.items() if k.startswith("all_gather")) / max(
+            its, 1)
+    same = all(
+        int(r["model_lbfgsb"]["result"][k]) == int(one[k])
+        for r in ranks for k in ("status", "nfev", "iterations"))
+    bad = [k for r in ranks for k in r["model_lbfgsb"]["collectives"][
+        "in_loop"] if not k.startswith(("all_reduce", "all_gather"))]
+    launched = [c for c in row["launches_by_rank"] if any(c.values())]
+    log(f"[parallel] (e) {PARALLEL_RANKS} gloo ranks on one card, n = "
+        f"{MODEL_LBFGSB_N} float64, cut {MODEL_LBFGSB_CUT}: {its} "
+        f"iterations, nfev {row['nfev']} (world of one {int(one['nfev'])}), "
+        f"status {row['status']}, |x - x1| {row['x_max_abs_diff']:.3e}; "
+        f"{row['passes']} Cauchy passes, "
+        f"{row['all_reduces_per_iteration']:.1f} all-reduces and "
+        f"{row['all_gathers_per_iteration']:.1f} all-gathers an iteration, "
+        f"walls by rank {row['wall_s_by_rank']}; collectives in the loop "
+        f"{in_loop}")
+    if (not same or row["x_max_abs_diff"] > MODEL_LBFGSB_XTOL or bad
+            or launched or row["passes"] == 0):
+        raise AssertionError(f"(e) two ranks: {row}")
+    return row
+
+
+def _example_launches(label, counts, want) -> None:
+    """Raise unless exactly the kernels ``want`` launched (each at least
+    once) in ``counts``."""
+    got = {k for k, v in counts.items() if v}
+    if got != set(want):
+        raise AssertionError(f"{label}: launched {counts}, expected {want}")
+
+
+def _examples_close(label, card, cpu, f32_status=None) -> dict:
+    """The figures of one solve on the card against the CPU's (see
+    EXAMPLE_TOL); returns the distances."""
+    import numpy as np
+
+    out = {"status_equal": card.get("status") == cpu.get("status"),
+           "nfev_diff": abs(card.get("nfev", 0) - cpu.get("nfev", 0)),
+           "iterations_diff": abs(card.get("iterations", 0)
+                                  - cpu.get("iterations", 0))}
+    floats = {k: (np.asarray(card[k], np.float64),
+                  np.asarray(cpu[k], np.float64))
+              for k in card
+              if k not in ("status", "nfev", "iterations", "trips",
+                           "callback")
+              and isinstance(card[k], (float, list))}
+    out["max_abs_diff"] = {k: float(np.abs(a - b).max()) if a.size else 0.0
+                           for k, (a, b) in floats.items()
+                           if a.shape == b.shape}
+    if f32_status is None:
+        ok = (out["status_equal"] and out["nfev_diff"] <= EXAMPLE_NFEV
+              and out["iterations_diff"] <= EXAMPLE_NFEV
+              and all(v <= EXAMPLE_TOL for k, v in
+                      out["max_abs_diff"].items()
+                      if k in ("x", "f")))
+    else:
+        ok = ((out["status_equal"] or not f32_status)
+              and out["max_abs_diff"].get("x", 0.0) <= EXAMPLE_F32_TOL)
+    if not ok:
+        raise AssertionError(f"example {label}: card {card}, cpu {cpu}, "
+                             f"{out}")
+    return out
+
+
+def example_world_of_one(where: str) -> int:
+    """``chip_smoke.py --example-world-of-one DIR``: examples_torch/
+    pod_scale.py's ``main("cuda")`` and ``entry_torch.dryrun_multichip(1)``
+    in a world of one under NCCL (each joins and leaves it), with their
+    launches; writes ``DIR/world_of_one.pt``."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    mods = Mods()
+    import entry_torch
+    from examples_torch import pod_scale
+
+    rec = {}
+    zero_launches(mods)
+    t0 = time.perf_counter()
+    rec["pod_scale"] = pod_scale.main("cuda")
+    rec["pod_scale_s"] = time.perf_counter() - t0
+    rec["pod_scale_launches"] = launch_counts(mods)
+    rec["dryrun"], rec["dryrun_launches"], rec["dryrun_s"] = _dryrun(
+        mods, entry_torch, 1, "cuda")
+    fn, args = entry_torch.entry("cuda")
+    zero_launches(mods)
+    out = fn(*args)
+    rec["entry"] = {"shape": list(out.shape), "dtype": str(out.dtype),
+                    "finite": bool(out.isfinite().all()),
+                    "launches": launch_counts(mods)}
+    torch.save(rec, os.path.join(where, "world_of_one.pt"))
+    return 0
+
+
+def _dryrun(mods, entry_torch, world, device):
+    """``dryrun_multichip(world)`` with each part's launches: the parts run
+    one after the other, so the counts are read by wrapping the solves'
+    entry points."""
+    from cppnumericalsolvers_tpu_torch import parallel
+
+    counts = {}
+    names = iter(("lbfgs", "lbfgsb"))
+    real = parallel.minimize_sharded
+
+    def sharded(*args, **kwargs):
+        zero_launches(mods)
+        out = real(*args, **kwargs)
+        counts[next(names)] = launch_counts(mods)
+        return out
+
+    real_al = entry_torch._al_sharded
+
+    def al(*args, **kwargs):
+        zero_launches(mods)
+        out = real_al(*args, **kwargs)
+        counts["al"] = launch_counts(mods)
+        return out
+
+    real_model = parallel.minimize_model_sharded
+
+    def model(*args, **kwargs):
+        zero_launches(mods)
+        out = real_model(*args, **kwargs)
+        counts["mesh_2d"] = launch_counts(mods)
+        return out
+
+    t0 = time.perf_counter()
+    parallel.minimize_sharded = sharded
+    parallel.minimize_model_sharded = model
+    entry_torch._al_sharded = al
+    try:
+        parts = entry_torch.dryrun_multichip(world, device)
+    finally:
+        parallel.minimize_sharded = real
+        parallel.minimize_model_sharded = real_model
+        entry_torch._al_sharded = real_al
+    return parts, counts, time.perf_counter() - t0
+
+
+def example_rank(rank: int, world: int, where: str) -> int:
+    """``chip_smoke.py --example-rank RANK WORLD DIR``: one of two gloo
+    ranks sharing card 0 (``LOCAL_RANK=0``) for
+    ``entry_torch.dryrun_multichip(2)``; writes ``DIR/rank{RANK}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    mods = Mods()
+    import entry_torch
+    from cppnumericalsolvers_tpu_torch import parallel
+    from cppnumericalsolvers_tpu_torch.parallel.comm import rank_device
+
+    parallel.initialize_distributed(
+        backend="gloo", rank=rank, world_size=world,
+        store=dist.FileStore(os.path.join(where, "store"), world))
+    try:
+        dev = rank_device()
+        rec = {"rank": rank, "device": str(dev)}
+        rec["dryrun"], rec["dryrun_launches"], rec["dryrun_s"] = _dryrun(
+            mods, entry_torch, world, dev)
+    finally:
+        dist.destroy_process_group()
+    torch.save(rec, os.path.join(where, f"rank{rank}.pt"))
+    return 0
+
+
+def _start_example_processes(where: str) -> list:
+    """Start the world of one and the two gloo ranks of examples_main."""
+    import shutil
+
+    shutil.rmtree(where, ignore_errors=True)
+    os.makedirs(where)
+    env = {**os.environ, "LOCAL_RANK": "0", "OMP_NUM_THREADS": "1"}
+    script = os.path.abspath(__file__)
+    cmds = [[script, "--example-world-of-one", where]]
+    cmds += [[script, "--example-rank", str(r), "2", where]
+             for r in range(2)]
+    return [subprocess.Popen(
+        [sys.executable] + c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for c in cmds]
+
+
+def _wait_example_processes(procs, where: str):
+    import torch
+
+    outs = []
+    deadline = time.perf_counter() + EXAMPLE_RANK_TIMEOUT
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [i for i, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        for i in failed:
+            log(f"[examples] process {i} exited {procs[i].returncode}:\n"
+                + (outs[i] if i < len(outs) else "")[-4000:])
+        raise AssertionError(f"example processes {failed} failed")
+    one = torch.load(os.path.join(where, "world_of_one.pt"),
+                     weights_only=False)
+    pair = [torch.load(os.path.join(where, f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    return one, pair
+
+
+def _check_dryrun(label, parts, counts, world) -> None:
+    want = dict(DRYRUN_LAUNCHES)
+    if world < 2:
+        want.pop("mesh_2d")
+    if set(parts) != set(want):
+        raise AssertionError(f"{label}: parts {sorted(parts)}")
+    for part, kernels in want.items():
+        _example_launches(f"{label} {part}", counts[part], kernels)
+        if not bool(parts[part]["x"].isfinite().all()):
+            raise AssertionError(f"{label} {part}: x not finite")
+    x = parts["lbfgsb"]["x"]
+    if bool(((x < PARALLEL_BOX[0] - 1e-5) | (x > PARALLEL_BOX[1] + 1e-5))
+            .any()):
+        raise AssertionError(f"{label}: L-BFGS-B left its box")
+
+
+def examples_main(mods, dev) -> dict:
+    """The examples (the ``examples_main`` phase): see EXAMPLE_MODULES and
+    EXAMPLE_LAUNCHES.  The world-of-one and two-rank processes run while
+    this process runs each module on the card (launch counts set to 0 just
+    before each solve and read just after it) and on the CPU."""
+    import importlib
+
+    import torch
+
+    rec = {"modules": {}}
+    launches = {name: 0 for name in REPLACES}
+    where = os.path.join(ROOT, "build", "example_ranks")
+    t0 = time.perf_counter()
+    procs = _start_example_processes(where)
+    try:
+        for name in EXAMPLE_MODULES:
+            mod = importlib.import_module(f"examples_torch.{name}")
+            counts = {}
+            real = getattr(mod, "solve", None)
+
+            def counted(solve_name, device=None, real=real, counts=counts):
+                zero_launches(mods)
+                out = real(solve_name, device)
+                torch.cuda.synchronize()
+                counts[solve_name] = launch_counts(mods)
+                return out
+
+            zero_launches(mods)
+            t1 = time.perf_counter()
+            if real is not None:
+                mod.solve = counted
+            try:
+                card = mod.main("cuda")
+            finally:
+                if real is not None:
+                    mod.solve = real
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            if real is None:
+                counts["main"] = launch_counts(mods)
+            t1 = time.perf_counter()
+            cpu = mod.main("cpu")
+            cpu_wall = time.perf_counter() - t1
+            row = {"wall_s": wall, "cpu_wall_s": cpu_wall,
+                   "launches": counts, "compared": {}}
+            expected = EXAMPLE_LAUNCHES.get(name, {})
+            for solve_name, c in counts.items():
+                _example_launches(f"{name} {solve_name}", c,
+                                  expected.get(solve_name, ()))
+                if "flat_trip" in expected.get(solve_name, ()):
+                    if c["flat_trip"] != card[solve_name]["trips"]:
+                        raise AssertionError(
+                            f"{name} {solve_name}: {c['flat_trip']} "
+                            f"flat_trip launches for "
+                            f"{card[solve_name]['trips']} trips")
+                for k, v in c.items():
+                    launches[k] += v
+            if name == "expressions_tour":
+                row["compared"]["main"] = _examples_close(
+                    name, {k: v for k, v in card.items() if k != "mode"},
+                    {k: v for k, v in cpu.items() if k != "mode"})
+            else:
+                f32 = EXAMPLE_F32_STATUS.get(name)
+                for solve_name in card:
+                    row["compared"][solve_name] = _examples_close(
+                        f"{name} {solve_name}", card[solve_name],
+                        cpu[solve_name],
+                        None if f32 is None else solve_name in f32)
+            rec["modules"][name] = row
+            log(f"[examples] {name}: card {wall:.2f} s, CPU {cpu_wall:.2f} "
+                f"s; launches by solve {counts}; card against CPU "
+                f"{row['compared']}")
+        one, pair = _wait_example_processes(procs, where)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pod = one["pod_scale"]
+    _example_launches("pod_scale", one["pod_scale_launches"],
+                      ("flat_trip",))
+    if (pod["metrics"]["total_instances"] != 128
+            or one["pod_scale_launches"]["flat_trip"] != pod["trips"]
+            or not bool(pod["x"].isfinite().all())):
+        raise AssertionError(f"pod_scale: {pod['metrics']}")
+    _check_dryrun("dryrun_multichip(1)", one["dryrun"],
+                  one["dryrun_launches"], 1)
+    for r in pair:
+        _check_dryrun(f"dryrun_multichip(2) rank {r['rank']}", r["dryrun"],
+                      r["dryrun_launches"], 2)
+        if not torch.equal(r["dryrun"]["lbfgs"]["x"],
+                           pair[0]["dryrun"]["lbfgs"]["x"]):
+            raise AssertionError("dryrun_multichip(2): ranks disagree")
+    entry = one["entry"]
+    if not entry["finite"] or entry["shape"] != [256, 32]:
+        raise AssertionError(f"entry(): {entry}")
+    for counts in ([one["pod_scale_launches"]]
+                   + list(one["dryrun_launches"].values())
+                   + [c for r in pair
+                      for c in r["dryrun_launches"].values()]):
+        for k, v in counts.items():
+            launches[k] += v
+    rec["pod_scale"] = {"metrics": pod["metrics"], "wall_s": pod["wall_s"],
+                        "trips": pod["trips"],
+                        "launches": one["pod_scale_launches"]}
+    rec["dryrun_1"] = {"launches": one["dryrun_launches"],
+                       "wall_s": one["dryrun_s"]}
+    rec["dryrun_2"] = [{"launches": r["dryrun_launches"],
+                        "wall_s": r["dryrun_s"]} for r in pair]
+    rec["entry"] = entry
+    rec["launches"] = launches
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"[examples] pod_scale world of one: {pod['metrics']}, wall "
+        f"{pod['wall_s']:.3f} s, launches {one['pod_scale_launches']}; "
+        f"dryrun_multichip(1) {one['dryrun_s']:.2f} s launches "
+        f"{one['dryrun_launches']}; dryrun_multichip(2) on two gloo ranks "
+        f"{[round(r['dryrun_s'], 2) for r in pair]} s launches "
+        f"{pair[0]['dryrun_launches']}; entry() {entry}")
+    return rec
+
+
+def parallel_main(mods, dev, rank_procs, blocks) -> dict:
+    """The multi-device solves (the ``parallel_main`` phase): parts (a)-(e)
     of the comment above PARALLEL_SHAPES, each raising on failure.  Part
-    (b)'s and (c)'s two ranks run first, as processes of their own; then
+    (b)'s block checks (``blocks``) ran in the side process.  Part (b)'s,
+    (c)'s and (e)'s two ranks (``rank_procs``, started by ``main`` with the
+    constrained phase) are waited for first; then
     this process joins a world of one under NCCL (a ``FileStore`` under
-    ``build/``) for (a) and (c), and leaves it before (d).  Times of two
+    ``build/``) for (a), (c) and (e), and leaves it before (d).  Times of two
     ranks sharing one card say nothing of scaling; they are kept only as
     what they are."""
     import torch
@@ -4045,7 +4780,7 @@ def parallel_main(mods, dev) -> dict:
 
     rec = {}
     t0 = time.perf_counter()
-    ranks = run_parallel_ranks(os.path.join(ROOT, "build", "parallel_ranks"))
+    ranks = wait_parallel_ranks(rank_procs)
     rec["ranks_s"] = time.perf_counter() - t0
     store = os.path.join(ROOT, "build", f"parallel_store_{os.getpid()}")
     if os.path.exists(store):
@@ -4062,17 +4797,21 @@ def parallel_main(mods, dev) -> dict:
             mods, model_mesh, MODEL_N, dev, unsharded=True)
         rec["c_world_of_one_pair_n"], one = parallel_model_world_of_one(
             mods, model_mesh, MODEL_PAIR_N, dev, unsharded=False)
+        rec["e"], one_lbfgsb = parallel_model_lbfgsb(mods, model_mesh, dev)
     finally:
         dist.destroy_process_group()
         os.remove(store)
     rec["b"] = parallel_pair_check(mods, ranks, dev)
-    rec["b_blocks"] = block_checks(mods, dev)
+    rec["b_blocks"] = blocks
     rec["c_two_ranks"] = parallel_model_pair_check(ranks, one)
+    rec["e_two_ranks"] = parallel_model_lbfgsb_pair_check(ranks, one_lbfgsb)
     rec["d"] = parallel_xla_alone(mods, dev)
     launches = {name: 0 for name in REPLACES}
     for row in rec["a"]:
         for name, count in row["launches"].items():
             launches[name] += count
+    for name, count in rec["e"]["unsharded_launches"].items():
+        launches[name] += count
     for r in ranks:
         for label in ("lbfgs", "lbfgsb"):
             for name, count in r[label]["launches"].items():
@@ -4082,7 +4821,19 @@ def parallel_main(mods, dev) -> dict:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--parallel-rank"], ["--example-rank"],
+                         ["--example-world-of-one"], ["--side"]):
+        import faulthandler
+
+        faulthandler.enable()  # a rank that crashes says where
     if sys.argv[1:2] == ["--parallel-rank"]:
         sys.exit(parallel_rank(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))
+    if sys.argv[1:2] == ["--example-rank"]:
+        sys.exit(example_rank(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4]))
+    if sys.argv[1:2] == ["--example-world-of-one"]:
+        sys.exit(example_world_of_one(sys.argv[2]))
+    if sys.argv[1:2] == ["--side"]:
+        sys.exit(side_process(sys.argv[2]))
     sys.exit(main())

@@ -18,11 +18,17 @@ __all__ = [
     "any_lane",
     "fixed_sum",
     "lane_amax",
+    "lane_amin",
+    "lane_any",
     "lane_gram",
+    "lane_lexmin",
     "lane_matvec",
     "lane_sum",
     "masked_while",
     "model_axis_group",
+    "model_group",
+    "model_shard",
+    "model_sum",
     "strided_sum",
     "tree_map",
     "tree_where",
@@ -32,6 +38,9 @@ __all__ = [
 #: ``parallel.minimize_model_sharded`` through :func:`model_axis_group`;
 #: None everywhere else.
 _MODEL_GROUP = None
+#: This rank's shard of the n axis inside :func:`model_axis_group`: the
+#: global index of its first element and the global n.
+_MODEL_SHARD = (0, None)
 
 
 def tree_map(fn, tree, *rest):
@@ -91,19 +100,23 @@ def masked_while(cond, body, carry, live):
 
 
 @contextlib.contextmanager
-def model_axis_group(group):
+def model_axis_group(group, offset: int = 0, n: int | None = None):
     """Within this context every lane's n-vector is sharded over the ranks
-    of ``group`` (a ``torch.distributed`` process group): :func:`lane_sum`
-    and :func:`lane_amax` follow their local reduction with an
-    ``all_reduce`` over it, and the More-Thuente search takes its plain
-    trip, whose directional derivative is a :func:`lane_sum` (the
-    ``mt_trip`` kernel reduces over the local shard only)."""
-    global _MODEL_GROUP
-    outer, _MODEL_GROUP = _MODEL_GROUP, group
+    of ``group`` (a ``torch.distributed`` process group), this rank's shard
+    starting at global index ``offset`` of ``n``: :func:`lane_sum`,
+    :func:`model_sum`, :func:`lane_amax`, :func:`lane_amin` and
+    :func:`lane_any` follow their local reduction with an ``all_reduce``
+    over it, :func:`lane_lexmin` picks over the ranks, and the More-Thuente
+    search takes its plain trip, whose directional derivative is a
+    :func:`lane_sum` (the ``mt_trip`` kernel reduces over the local shard
+    only)."""
+    global _MODEL_GROUP, _MODEL_SHARD
+    outer = _MODEL_GROUP, _MODEL_SHARD
+    _MODEL_GROUP, _MODEL_SHARD = group, (offset, n)
     try:
         yield
     finally:
-        _MODEL_GROUP = outer
+        _MODEL_GROUP, _MODEL_SHARD = outer
 
 
 def model_group():
@@ -112,14 +125,26 @@ def model_group():
     return _MODEL_GROUP
 
 
+def model_shard() -> tuple[int, int | None]:
+    """``(offset, n)`` of the enclosing :func:`model_axis_group`: the global
+    index of this rank's first element and the global n."""
+    return _MODEL_SHARD
+
+
+def model_sum(s: torch.Tensor) -> torch.Tensor:
+    """Per-rank partial sums ``s`` (any shape, e.g. a lane's products over
+    its shard) summed elementwise over the model group by one
+    ``all_reduce``; ``s`` itself outside :func:`model_axis_group`."""
+    if _MODEL_GROUP is not None:
+        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
+    return s
+
+
 def lane_sum(x: torch.Tensor) -> torch.Tensor:
     """``torch.sum(x, -1)``: a per-lane sum over the n axis (a dot product
     is ``lane_sum(a * b)``).  Inside :func:`model_axis_group` the local sums
     are then summed over the group by one ``all_reduce``."""
-    s = torch.sum(x, dim=-1)
-    if _MODEL_GROUP is not None:
-        dist.all_reduce(s, op=dist.ReduceOp.SUM, group=_MODEL_GROUP)
-    return s
+    return model_sum(torch.sum(x, dim=-1))
 
 
 #: Rows of fewer than this many values are summed by one ``torch.sum``.
@@ -223,6 +248,11 @@ def strided_sum(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+def _group_reduce(s: torch.Tensor, op) -> torch.Tensor:
+    dist.all_reduce(s, op=op, group=_MODEL_GROUP)
+    return s
+
+
 def lane_amax(x: torch.Tensor) -> torch.Tensor:
     """``torch.amax(x, -1)`` of non-negative values ``x`` (magnitudes): a
     per-lane infinity norm over the n axis.  Inside
@@ -232,5 +262,49 @@ def lane_amax(x: torch.Tensor) -> torch.Tensor:
         return torch.amax(x, dim=-1)
     s = (torch.amax(x, dim=-1) if x.shape[-1]
          else x.new_zeros(x.shape[:-1]))
-    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=_MODEL_GROUP)
-    return s
+    return _group_reduce(s, dist.ReduceOp.MAX)
+
+
+def lane_amin(x: torch.Tensor) -> torch.Tensor:
+    """``torch.amin(x, -1)`` of floating values: a per-lane minimum over the
+    n axis.  Inside :func:`model_axis_group` the local minima (+inf on a
+    rank whose shard is empty) are then minimised over the group by one
+    ``all_reduce``."""
+    if _MODEL_GROUP is None:
+        return torch.amin(x, dim=-1)
+    s = (torch.amin(x, dim=-1) if x.shape[-1]
+         else x.new_full(x.shape[:-1], float("inf")))
+    return _group_reduce(s, dist.ReduceOp.MIN)
+
+
+def lane_any(mask: torch.Tensor) -> torch.Tensor:
+    """``mask.any(-1)``: whether any element of a lane's n-vector is set.
+    Inside :func:`model_axis_group` the local answers are then or-ed over
+    the group by one ``all_reduce``."""
+    if _MODEL_GROUP is None:
+        return mask.any(dim=-1)
+    s = mask.any(dim=-1).to(torch.int32)
+    return _group_reduce(s, dist.ReduceOp.MAX) > 0
+
+
+def lane_lexmin(t: torch.Tensor, idx: torch.Tensor):
+    """Lane-wise lexicographic minimum of ``(t, idx)`` over the ranks of the
+    model group: each rank gives one ``(t, idx)`` pair a lane (``(B,)``
+    each; ``idx`` integral), and every rank gets back the pair with the
+    smallest ``t``, ties going to the smallest ``idx`` (``-0.0`` ties with
+    ``0.0``), with the winner's own bits.  One ``all_gather`` of the ranks'
+    pairs, then the same pick on every rank.  Outside
+    :func:`model_axis_group` it returns ``(t, idx)``."""
+    if _MODEL_GROUP is None:
+        return t, idx
+    # float64 holds float32 values and indices below 2**53 exactly.
+    pair = torch.stack([t.to(torch.float64), idx.to(torch.float64)], dim=-1)
+    parts = [torch.empty_like(pair)
+             for _ in range(dist.get_world_size(_MODEL_GROUP))]
+    dist.all_gather(parts, pair.contiguous(), group=_MODEL_GROUP)
+    every = torch.stack(parts)  # (W, B, 2)
+    ts, ids = every[..., 0], every[..., 1]
+    low = ts == torch.amin(ts, dim=0)
+    win = torch.argmin(torch.where(low, ids, torch.inf), dim=0)[None]
+    return (torch.gather(ts, 0, win)[0].to(t.dtype),
+            torch.gather(ids, 0, win)[0].to(idx.dtype))

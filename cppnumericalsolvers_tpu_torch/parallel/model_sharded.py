@@ -30,9 +30,17 @@ L-BFGS runs as ``Lbfgs(two_loop_impl="xla")`` (the push, the two-loop and
 the More-Thuente trips in plain PyTorch, no kernel), forced here as the JAX
 package forces its pure-XLA lowering; gradient descent runs as it is, its
 More-Thuente trips in plain PyTorch too (``core.tree.model_axis_group``),
-and so does conjugate gradient with its Armijo search.  These three are the
-solvers whose reductions over n all go through ``core.tree``'s lane
-reductions; any other raises with its reason (:func:`_check_solver`).
+and so does conjugate gradient with its Armijo search.  L-BFGS-B runs as it
+is, its box sharded like x (a per-coordinate box of the config is cut to
+each rank's shard), its search's trips in plain PyTorch: every sum over n
+is all-reduced, and its generalized-Cauchy-point walk merges the ranks'
+sorted breakpoints, one pass at a time, in two collectives a pass (an
+``all_gather`` of each rank's next breakpoint, an ``all_reduce`` of the
+crossed coordinate's 2m + 5 values;
+``solvers.lbfgsb.generalized_cauchy_point``).  None of these four launches
+a kernel.  These are the solvers whose reductions over n all go through
+``core.tree``'s lane reductions; any other raises with its reason
+(:func:`_check_solver`).
 
 Combine with the batch axis for a 2-D mesh: ``x0`` of shape ``(B, n)``
 with ``batch_axis`` splits the lanes over that axis (contiguous blocks,
@@ -61,7 +69,7 @@ from ..solvers.bfgs import Bfgs
 from ..solvers.conjugate_gradient import CgInternals, ConjugateGradientDescent
 from ..solvers.gradient_descent import GradientDescent
 from ..solvers.lbfgs import Lbfgs, LbfgsInternals
-from ..solvers.lbfgsb import Lbfgsb
+from ..solvers.lbfgsb import Lbfgsb, LbfgsbInternals
 from ..solvers.nelder_mead import NelderMead
 from ..solvers.newton import NewtonDescent
 from ..solvers.trust_region import TrustRegionNewton
@@ -82,8 +90,6 @@ def _force_xla_two_loop(solver: SolverBase) -> SolverBase:
 
 #: Why each solver the port does not model-shard cannot be, by class.
 _UNSHARDABLE = {
-    Lbfgsb: "its generalized-Cauchy-point walk sorts the breakpoints over "
-            "all of n, which a rank holding one shard cannot do",
     Bfgs: "it holds an n x n inverse Hessian per lane",
     NewtonDescent: "it forms and solves with the n x n Hessian per lane",
     TrustRegionNewton: "it holds the n x n Hessian per lane, and its "
@@ -96,19 +102,22 @@ _UNSHARDABLE = {
 _ALONG_N = {
     LbfgsInternals: ("s_memory", "y_memory", "s_pending", "y_pending"),
     CgInternals: ("previous_gradient", "direction"),
+    LbfgsbInternals: ("s_history", "y_history", "lower", "upper"),
 }
 
 
 def _check_solver(solver: SolverBase) -> None:
     """Raise unless every reduction over n of ``solver``'s loop goes
     through ``core.tree``'s lane reductions: ``Lbfgs`` without the Hessian
-    preconditioner, ``GradientDescent`` and ``ConjugateGradientDescent``."""
+    preconditioner, ``GradientDescent``, ``ConjugateGradientDescent`` and
+    ``Lbfgsb``."""
     if isinstance(solver, Lbfgs):
         if not solver.use_hessian_preconditioner:
             return
         why = ("the Hessian-diagonal preconditioner needs the Hessian, "
                "which the model-sharded objective does not evaluate")
-    elif isinstance(solver, (GradientDescent, ConjugateGradientDescent)):
+    elif isinstance(solver, (GradientDescent, ConjugateGradientDescent,
+                             Lbfgsb)):
         return
     else:
         why = next((v for k, v in _UNSHARDABLE.items()
@@ -118,6 +127,17 @@ def _check_solver(solver: SolverBase) -> None:
     raise ValueError(
         f"{type(solver).__name__} is not model-sharded in the port: {why}."
     )
+
+
+def _shard_box(solver: SolverBase, start: int, size: int) -> SolverBase:
+    """``solver`` with a per-coordinate box of its config (a tuple of n
+    floats) cut to this rank's shard ``start .. start + size``."""
+    if not isinstance(solver, Lbfgsb):
+        return solver
+    cut = {name: getattr(solver, name)[start:start + size]
+           for name in ("lower", "upper")
+           if isinstance(getattr(solver, name), tuple)}
+    return dataclasses.replace(solver, **cut) if cut else solver
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -226,7 +246,8 @@ def minimize_model_sharded(
     local = xb[:, start:start + sizes[col]].to(device).contiguous()
 
     sharded = _ShardedObjective(objective.fn, objective.mode, model_mesh, n)
-    with model_axis_group(model_group):
+    solver = _shard_box(solver, start, sizes[col])
+    with model_axis_group(model_group, start, n):
         res = _solve_batched(sharded, local, solver, stopping, trace, None,
                              None, device)
 

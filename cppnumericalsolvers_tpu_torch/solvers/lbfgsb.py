@@ -25,6 +25,11 @@ package's storage and arithmetic:
   a batched ``matmul`` goes to cuBLAS, which picks its algorithm by the
   batch count, so a lane's bits depended on the batch it was solved in.
   Here they do not, and the slot sums add on the card as on the CPU.
+* inside ``core.tree.model_axis_group`` (``parallel.minimize_model_sharded``)
+  every vector is one rank's shard of n: every sum over n is all-reduced
+  (``core.tree.model_sum``, ``lane_amax``, ``lane_amin``, ``lane_any``) and
+  the Cauchy walk merges the ranks' sorted breakpoints
+  (:func:`generalized_cauchy_point`); outside it the bits are as above.
 
 The search runs the batched More-Thuente of ``ops/fused_linesearch.py``, so
 on the card every search trip is one ``mt_trip`` launch.  The
@@ -53,8 +58,9 @@ from ..core.objective import FunctionState, Objective
 from ..core.progress import ProgressState, StoppingCriteria, default_stopping
 from ..core.status import Status
 from ..core.tree import (
-    any_lane, fixed_sum, lane_gram, lane_matvec, masked_while, strided_sum,
-    tree_where)
+    any_lane, fixed_sum, lane_amax, lane_amin, lane_any, lane_gram,
+    lane_lexmin, lane_matvec, masked_while, model_group, model_shard,
+    model_sum, strided_sum, tree_where)
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.fused_linesearch import batched_more_thuente
 from ..utils.linalg import invert_small, solve_small
@@ -73,7 +79,7 @@ def projected_gradient_inf_norm(x, gradient, lower, upper):
     zero = torch.zeros_like(g)
     g = torch.where((x <= lower) & (g > 0), zero, g)
     g = torch.where((x >= upper) & (g < 0), zero, g)
-    return torch.amax(torch.abs(g), dim=-1)
+    return lane_amax(torch.abs(g))
 
 
 @dataclasses.dataclass
@@ -91,13 +97,14 @@ class LbfgsbInternals:
 
 
 def _dot(a, b):
-    return fixed_sum(a * b)
+    """A dot product over n (all-reduced over the model group inside
+    ``core.tree.model_axis_group``)."""
+    return model_sum(fixed_sum(a * b))
 
 
 def _sdot(a, b):
     """A dot product over the 2m slots."""
     return strided_sum(a * b)
-
 
 
 def _build_w(internals: LbfgsbInternals) -> torch.Tensor:
@@ -116,10 +123,10 @@ def _build_middle(s_history, y_history, count, theta, m):
     invalid slots (lbfgsb.h:227-235).  The zero-padded buffers give the
     reference's k x k blocks because invalid slots hold zero vectors."""
     dtype, dev = s_history.dtype, s_history.device
-    a = lane_gram(s_history, y_history)  # (B, m, m) S^T Y
+    a = model_sum(lane_gram(s_history, y_history))  # (B, m, m) S^T Y
     low = torch.tril(a, diagonal=-1)
     d = torch.diag_embed(torch.diagonal(a, dim1=-2, dim2=-1))
-    ss = lane_gram(s_history, s_history)
+    ss = model_sum(lane_gram(s_history, s_history))
     top = torch.cat([-d, low.transpose(-1, -2)], dim=-1)
     bottom = torch.cat([low, theta[:, None, None] * ss], dim=-1)
     mm = torch.cat([top, bottom], dim=-2)
@@ -133,7 +140,7 @@ def _build_middle(s_history, y_history, count, theta, m):
 @dataclasses.dataclass
 class _CauchyCarry:
     i: torch.Tensor  # (B,) int64 position in sorted breakpoint order
-    b: torch.Tensor  # (B,) int64 coordinate being examined
+    b: torch.Tensor  # (B,) int64 global index of the coordinate examined
     t: torch.Tensor  # its breakpoint
     t_old: torch.Tensor
     dt: torch.Tensor
@@ -144,11 +151,52 @@ class _CauchyCarry:
     d: torch.Tensor  # (B, n)
     f_prime: torch.Tensor
     f_dprime: torch.Tensor
+    # (B,) int64 next position in this shard's order inside a model group
+    # (None outside it, where it is ``i``)
+    ptr: torch.Tensor | None
 
 
 def _pick(vec, idx):
     """``vec[lane, idx[lane]]`` for every lane: ``(B, n), (B,) -> (B,)``."""
     return torch.gather(vec, -1, idx[:, None])[:, 0]
+
+
+def _breakpoints(x, gradient, lower, upper):
+    """The breakpoints ``t`` and the initial direction ``d``
+    (lbfgsb.h:334-350)."""
+    big = torch.finfo(x.dtype).max
+    one = torch.ones((), dtype=x.dtype, device=x.device)
+    nonzero = torch.where(gradient == 0, one, gradient)
+    t = torch.where(
+        gradient == 0,
+        torch.full_like(x, big),
+        torch.where(gradient < 0, (x - upper) / nonzero,
+                    (x - lower) / nonzero),
+    )
+    d = torch.where((gradient != 0) & (t == 0), torch.zeros_like(x),
+                    -gradient)
+    return t, d
+
+
+def _heads(t_sorted, gidx, ptr, n, sharded):
+    """Each lane's next breakpoint of this shard and its global index; a
+    shard of a model group (``sharded``) that has none left gives ``(inf,
+    n)``, which loses to every other rank's head.  Outside a model group a
+    lane past its last breakpoint stops walking, and what it gets here is
+    never read."""
+    b_, nl = t_sorted.shape
+    if nl == 0:
+        return (torch.full((b_,), torch.inf, dtype=t_sorted.dtype,
+                           device=t_sorted.device),
+                torch.full((b_,), n, dtype=torch.int64,
+                           device=t_sorted.device))
+    at = torch.clamp(ptr, max=nl - 1)
+    t_head, i_head = _pick(t_sorted, at), _pick(gidx, at)
+    if sharded:
+        left = ptr < nl
+        t_head = torch.where(left, t_head, torch.inf)
+        i_head = torch.where(left, i_head, n)
+    return t_head, i_head
 
 
 def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
@@ -163,25 +211,39 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     and tied coordinates must be visited in index order.  One pass of the
     loop crosses one breakpoint of every lane still walking; lanes outside
     ``live`` ``(B,)`` do not walk.  ``generalized_cauchy_point.passes``
-    counts passes."""
-    b_, n = x.shape
-    dtype, dev = x.dtype, x.device
-    big = torch.finfo(dtype).max
-    one = torch.ones((), dtype=dtype, device=dev)
+    counts passes.
 
-    nonzero = torch.where(gradient == 0, one, gradient)
-    t = torch.where(
-        gradient == 0,
-        torch.full_like(x, big),
-        torch.where(gradient < 0, (x - upper) / nonzero,
-                    (x - lower) / nonzero),
-    )
-    d = torch.where((gradient != 0) & (t == 0), torch.zeros_like(x),
-                    -gradient)
+    Inside ``core.tree.model_axis_group`` every n-vector (``x``, the
+    gradient, the box, ``w``'s rows) is this rank's shard, which starts at
+    global index ``offset`` of ``n`` (``core.tree.model_shard()``); outside
+    it the shard is the whole vector and every collective below is the
+    identity.  Each rank sorts its own breakpoints stably and keeps their
+    global indices and a pointer to its next one.  A pass crosses the
+    global next breakpoint, the lexicographic minimum of the ranks' heads
+    over ``(t, global index)`` (``core.tree.lane_lexmin``): the order of a
+    global stable sort, ties going to the lower index.  The owner of that
+    coordinate contributes its ``d_b, g_b, x_b, lower_b, upper_b`` and its
+    row of W to one all-reduce of ``(B, 2m + 5)`` values, zeros from the
+    other ranks (so the sum is exact), pins the coordinate and advances its
+    pointer; the global position ``i`` is a count every rank keeps alike.
+    Two collectives a pass.  The walk starts at the first positive
+    breakpoint, global position ``i0``, the sum over the ranks of their
+    non-positive ones; where there is none it starts at sorted position
+    n - 1, the global lexicographic maximum.  The final drift moves the
+    coordinates at or past each shard's pointer."""
+    b_, nl = x.shape
+    dev = x.device
+    sharded = model_group() is not None
+    offset, n = model_shard()
+    if n is None:
+        n = nl
+    t, d = _breakpoints(x, gradient, lower, upper)
     order = torch.argsort(t, dim=-1, stable=True)  # ascending breakpoints
     rank = torch.argsort(order, dim=-1, stable=True)
+    t_sorted = torch.gather(t, -1, order)
+    gidx = order + offset
 
-    p = lane_matvec(w.transpose(-1, -2), d)  # (B, 2m) W^T d
+    p = model_sum(lane_matvec(w.transpose(-1, -2), d))  # (B, 2m) W^T d
     c = torch.zeros_like(p)
     f_prime = -_dot(d, d)
     f_dprime = torch.maximum(
@@ -191,19 +253,29 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     )
     dt_min = -f_prime / f_dprime
 
-    # First sorted position with a positive breakpoint, or n - 1 if none.
-    pos = torch.gather(t, -1, order) > 0
-    i0 = torch.where(pos.any(dim=-1),
-                     torch.argmax(pos.to(torch.int32), dim=-1),
-                     torch.full((b_,), n - 1, dtype=torch.int64, device=dev))
-    b0 = _pick(order, i0)
-    t0 = _pick(t, b0)
+    # The non-positive breakpoints come first in each shard's order.
+    nonpos = (t_sorted <= 0).sum(dim=-1)
+    counts = model_sum(torch.stack([nonpos, (t_sorted > 0).sum(dim=-1)],
+                                   dim=-1))
+    none = counts[:, 1] == 0  # no positive breakpoint in the lane
+    head_t, head_i = _heads(t_sorted, gidx, nonpos, n, sharded)
+    if nl:
+        head_t = torch.where(none, -t_sorted[:, -1], head_t)
+        head_i = torch.where(none, -gidx[:, -1], head_i)
+    t0, b0 = lane_lexmin(head_t, head_i)
+    t0 = torch.where(none, -t0, t0)
+    b0 = torch.where(none, -b0, b0)
+    # Without a positive breakpoint the owner of the last one starts on it.
+    owns_last = none & (b0 >= offset) & (b0 < offset + nl)
     carry = _CauchyCarry(
-        i=i0, b=b0, t=t0, t_old=torch.zeros_like(t0), dt=t0, dt_min=dt_min,
-        x_cauchy=x, c=c, p=p, d=d, f_prime=f_prime, f_dprime=f_dprime,
+        i=torch.where(none, n - 1, counts[:, 0]), b=b0, t=t0,
+        t_old=torch.zeros_like(t0), dt=t0, dt_min=dt_min, x_cauchy=x, c=c,
+        p=p, d=d, f_prime=f_prime, f_dprime=f_dprime,
+        ptr=torch.where(owns_last, nl - 1, nonpos) if sharded else None,
     )
     f_dp_orig = f_dprime
-    lanes = torch.arange(n, device=dev)
+    lanes = torch.arange(nl, device=dev)
+    two_m = w.shape[-1]
 
     def walking(s):
         return (s.dt_min >= s.dt) & (s.i < n)
@@ -211,19 +283,30 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     def body(s, active):
         del active
         generalized_cauchy_point.passes += 1
-        b = s.b
-        oh = lanes[None, :] == b[:, None]
-        db = _pick(s.d, b)
-        gb = _pick(gradient, b)
-        # Pin the coordinate crossing its bound (lbfgsb.h:383-386).
-        xc_b = torch.where(db > 0, _pick(upper, b),
-                           torch.where(db < 0, _pick(lower, b),
-                                       _pick(s.x_cauchy, b)))
+        local = s.b - offset if sharded else s.b
+        oh = lanes[None, :] == local[:, None]
+        if sharded:
+            own = (local >= 0) & (local < nl)
+        if nl:
+            at = torch.clamp(local, 0, nl - 1) if sharded else local
+            db, gb, xb, lb, ub = (_pick(v, at) for v in (s.d, gradient, x,
+                                                         lower, upper))
+            wbt = torch.gather(
+                w, 1, at[:, None, None].expand(b_, 1, two_m))[:, 0]
+        if sharded:
+            vals = (torch.cat([torch.stack([db, gb, xb, lb, ub], dim=-1),
+                               wbt], dim=-1) if nl
+                    else x.new_zeros((b_, two_m + 5)))
+            vals = model_sum(torch.where(own[:, None], vals,
+                                         torch.zeros_like(vals)))
+            db, gb, xb, lb, ub = vals[:, :5].unbind(-1)
+            wbt = vals[:, 5:]
+        # Pin the coordinate crossing its bound (lbfgsb.h:383-386); an
+        # uncrossed coordinate's x_cauchy is still its x.
+        xc_b = torch.where(db > 0, ub, torch.where(db < 0, lb, xb))
         x_cauchy = torch.where(oh, xc_b[:, None], s.x_cauchy)
-        zb = xc_b - _pick(x, b)
+        zb = xc_b - xb
         c_new = s.c + s.dt[:, None] * s.p
-        wbt = torch.gather(
-            w, 1, b[:, None, None].expand(b_, 1, w.shape[-1]))[:, 0]
         mwbt = lane_matvec(middle_inv, wbt, strided_sum)
         f_prime = (s.f_prime + s.dt * s.f_dprime + gb * gb
                    + theta * gb * zb - gb * _sdot(mwbt, c_new))
@@ -235,8 +318,9 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
         d_new = torch.where(oh, torch.zeros_like(s.d), s.d)
         dt_min = -f_prime / f_dprime
         i = s.i + 1
-        b_next = _pick(order, torch.clamp(i, max=n - 1))
-        t_next = _pick(t, b_next)
+        ptr = s.ptr + own.to(s.ptr.dtype) if sharded else None
+        t_next, b_next = lane_lexmin(*_heads(
+            t_sorted, gidx, ptr if sharded else i, n, sharded))
         in_range = i < n
         return _CauchyCarry(
             i=i,
@@ -245,7 +329,7 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
             t_old=s.t,
             dt=torch.where(in_range, t_next - s.t, s.dt),
             dt_min=dt_min, x_cauchy=x_cauchy, c=c_new, p=p_new, d=d_new,
-            f_prime=f_prime, f_dprime=f_dprime,
+            f_prime=f_prime, f_dprime=f_dprime, ptr=ptr,
         )
 
     if live is None:
@@ -253,10 +337,10 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     fin = masked_while(walking, body, carry, live)
 
     # Final drift of the coordinates not pinned in the loop
-    # (lbfgsb.h:417-427).
+    # (lbfgsb.h:417-427): on each shard, those at or past its pointer.
     dt_min = torch.clamp(fin.dt_min, min=0.0)
     t_old = fin.t_old + dt_min
-    drift = rank >= fin.i[:, None]
+    drift = rank >= (fin.ptr if sharded else fin.i)[:, None]
     x_cauchy = torch.where(drift, x + t_old[:, None] * fin.d, fin.x_cauchy)
     return x_cauchy, fin.c + dt_min[:, None] * fin.p
 
@@ -282,8 +366,9 @@ def _subspace_minimization(x, gradient, x_cauchy, c, lower, upper, w,
     # (lbfgsb.h:484-495), W_F being W with its bound rows zeroed.
     wf = w * free[:, :, None].to(dtype)
     wft = wf.transpose(-1, -2)
-    v = lane_matvec(middle_inv, lane_matvec(wft, r), strided_sum)
-    nn = theta_inv[:, None, None] * lane_gram(wft, wft)
+    v = lane_matvec(middle_inv, model_sum(lane_matvec(wft, r)),
+                    strided_sum)
+    nn = theta_inv[:, None, None] * model_sum(lane_gram(wft, wft))
     nn = (torch.eye(two_m, dtype=dtype, device=dev)
           - lane_gram(middle_inv, nn.transpose(-1, -2), strided_sum))
     v = solve_small(nn, v)
@@ -300,10 +385,10 @@ def _subspace_minimization(x, gradient, x_cauchy, c, lower, upper, w,
     ratio = torch.where(du > 0, (upper - x_cauchy) / safe,
                         (lower - x_cauchy) / safe)
     ratio = torch.where(consider, ratio, torch.full_like(ratio, float("inf")))
-    alpha_star = torch.clamp(torch.amin(ratio, dim=-1), max=1.0)
+    alpha_star = torch.clamp(lane_amin(ratio), max=1.0)
     subspace_min = torch.where(free, x_cauchy + alpha_star[:, None] * du,
                                x_cauchy)
-    return subspace_min, free.any(dim=-1)
+    return subspace_min, lane_any(free)
 
 
 def _bound_field(val):
@@ -440,7 +525,7 @@ class Lbfgsb(SolverBase):
         # Project an infeasible iterate into the box and evaluate there if
         # it moved (lbfgsb.h:144-153).
         x = torch.minimum(torch.maximum(state.x, lower), upper)
-        moved = (x != state.x).any(dim=-1) & live
+        moved = lane_any(x != state.x) & live
         value, gradient, nfev = state.value, state.gradient, state.nfev
         if any_lane(moved):
             value_c, gradient_c = objective.batched_value_and_grad(x)
@@ -475,7 +560,7 @@ class Lbfgsb(SolverBase):
         # Clip a step that crossed a bound and evaluate there; where nothing
         # was clipped the search's (f, g) at ls_x stand (lbfgsb.h:199-203).
         clipped = torch.minimum(torch.maximum(next_x, lower), upper)
-        was_clipped = (clipped != next_x).any(dim=-1)
+        was_clipped = lane_any(clipped != next_x)
         need_eval = (~do_line_search | was_clipped) & live
         next_value, next_gradient = ls_f, ls_g
         if any_lane(need_eval):

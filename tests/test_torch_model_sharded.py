@@ -175,12 +175,12 @@ def test_shape_validation(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_unshardable_solver_raises(runs, world):
-    """BFGS and L-BFGS-B stay refused, each message with its reason."""
+    """BFGS and Newton stay refused, each message with its reason."""
     for r in runs[world]:
         assert "not model-sharded" in r["bfgs"]
         assert "n x n inverse Hessian" in r["bfgs"]
-        assert "not model-sharded" in r["lbfgsb"]
-        assert "sorts the breakpoints over all of n" in r["lbfgsb"]
+        assert "not model-sharded" in r["newton"]
+        assert "n x n Hessian" in r["newton"]
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,3 +242,152 @@ def test_strided_objective_all_gathers(runs, world):
         counts = in_loop(r["rosen_strided"])
         assert counts[("all_gather", shard)] >= 2
         assert set(counts) <= {("all_gather", shard), ("all_reduce", 1)}
+
+
+# Model-sharded L-BFGS-B ------------------------------------------------------
+
+#: The L-BFGS-B cases held exactly: against JAX and W ranks against one.
+LBFGSB_EXACT = ("lbfgsb_box_cut", "lbfgsb_free", "lbfgsb_box_uneven",
+                "lbfgsb_free_uneven")
+
+
+def jax_rosenbrock_fn(x):
+    even, odd = x[0::2], x[1::2]
+    return jnp.sum(100.0 * (odd - even**2) ** 2 + (1.0 - even) ** 2)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_lbfgsb(label):
+    """JAX's unsharded ``minimize(..., Lbfgsb(m=5, ...))`` of one of the
+    ranks' L-BFGS-B cases, float64 on the CPU."""
+    from cppnumericalsolvers_tpu.solvers import Lbfgsb as JaxLbfgsb
+
+    _, kind, _, box, x0, cut = next(
+        c for c in ranks.lbfgsb_cases() if c[0] == label)
+    kw = {} if box is None else dict(lower=box[0], upper=box[1])
+    solver = JaxLbfgsb(m=5, **kw)
+    stop = solver.default_stopping(jnp.float64)
+    if cut:
+        stop = stop.replace(max_iterations=cut)
+    fn = jax_rosenbrock_fn if kind == "rosen" else ranks_quadratic_jax
+    res = jcns.minimize(jcns.objective(fn, mode="first"), jnp.asarray(x0),
+                        solver, stop)
+    return {"status": res.progress.status, "nfev": res.state.nfev,
+            "x": res.state.x, "value": res.state.value}
+
+
+@pytest.mark.parametrize("case", LBFGSB_EXACT)
+@pytest.mark.parametrize("world", WORLDS)
+def test_lbfgsb_matches_jax(runs, world, case):
+    """Model-sharded L-BFGS-B (boxed and unboxed, N = 512 and the uneven
+    510) against the JAX package's unsharded solve: status and nfev exact,
+    x within 1e-8, the value within rtol 1e-10, on every rank."""
+    want = jax_lbfgsb(case)
+    for got in records(runs, world, case):
+        assert_matches(got, want)
+
+
+@pytest.mark.parametrize("case", LBFGSB_EXACT)
+@pytest.mark.parametrize("world", SHARDED)
+def test_lbfgsb_sharded_matches_the_world_of_one(runs, world, case):
+    want = records(runs, 1, case)[0]
+    for got in records(runs, world, case):
+        assert_matches(got, want)
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_lbfgsb_boxed_rosenbrock_to_its_end(runs, world):
+    """The boxed Rosenbrock from [1, 3] run to its end: from a random start
+    its trajectory amplifies a sum's last bit (W ranks part from one by
+    3.5e-11 at 20 iterations, 4.2e-8 at 40, 3e-4 at 80), so the full solve
+    is held as JAX's full solves are: JAX's status, x inside the box and
+    the value on the optimum; every rank holds the same result."""
+    want = jax_lbfgsb("lbfgsb_box")
+    recs = records(runs, world, "lbfgsb_box")
+    for got in recs:
+        assert int(got["status"]) == int(want["status"])
+        x = got["x"].numpy()
+        assert (x >= ranks.LBFGSB_BOX[0]).all()
+        assert (x <= ranks.LBFGSB_BOX[1]).all()
+        assert float(got["value"]) < 1e-4
+        assert torch.equal(got["x"], recs[0]["x"])
+
+
+def test_world_of_one_lbfgsb_is_bit_equal_to_the_unsharded_solve(runs):
+    """One rank's walk and sums are the unsharded ones: every collective is
+    the identity, so the bits are ``minimize``'s."""
+    for label in ("lbfgsb_box_cut", "lbfgsb_box_uneven"):
+        _, kind, n, box, x0, cut = next(
+            c for c in ranks.lbfgsb_cases() if c[0] == label)
+        solver = cns.Lbfgsb(m=5, lower=box[0], upper=box[1])
+        stop = solver.default_stopping(torch.float64)
+        if cut:
+            stop = stop.replace(max_iterations=cut)
+        fn = (ranks.rosenbrock_view if kind == "rosen"
+              else ranks.quadratic(ranks.quadratic_scale(n)))
+        want = ranks.summary(cns.minimize(
+            cns.objective(fn), torch.from_numpy(x0), solver, stop,
+            device="cpu"))
+        got = records(runs, 1, label)[0]
+        for key in ("status", "nfev", "iterations", "x", "value",
+                    "gradient"):
+            assert torch.equal(got[key], want[key]), (label, key)
+
+
+@pytest.mark.parametrize("kind", ["none", "ties"])
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_cauchy_point_matches_jax(runs, world, kind):
+    """The sharded walk against JAX's ``_generalized_cauchy_point`` on the
+    whole vectors, within 1e-12: with no positive breakpoint (every
+    coordinate on a bound its gradient points out of), and with whole
+    classes of tied breakpoints spread over every shard."""
+    import cppnumericalsolvers_tpu.solvers.lbfgsb as jlbfgsb
+
+    inputs = ranks.cauchy_inputs(kind)
+    want = jax.vmap(jlbfgsb._generalized_cauchy_point)(
+        *(jnp.asarray(a) for a in inputs))
+    for r in runs[world]:
+        got = r[f"cauchy_{kind}"]
+        np.testing.assert_allclose(got["x_cauchy"].numpy(),
+                                   np.asarray(want[0]), rtol=0, atol=1e-12)
+        np.testing.assert_allclose(got["c"].numpy(), np.asarray(want[1]),
+                                   rtol=0, atol=1e-12)
+    if kind == "ties":
+        # The walk crossed tied breakpoints: the Cauchy point moved.
+        assert not np.array_equal(np.asarray(want[0]), inputs[0])
+
+
+@pytest.mark.parametrize("world", SHARDED)
+def test_lbfgsb_collective_signature(runs, world):
+    """Two collectives a Cauchy pass: one all-reduce of the crossed
+    coordinate's 2m + 5 = 15 values and one all-gather of each rank's next
+    breakpoint (2 values), plus one all-gather a walk for its first
+    breakpoint; nothing else gathers inside the loop (x and the history
+    stay sharded), and every other collective is an all-reduce."""
+    for r in runs[world]:
+        rec = r["lbfgsb_box_cut"]
+        counts = in_loop(rec)
+        its = int(rec["result"]["iterations"])
+        assert rec["passes"] > 0
+        assert counts[("all_reduce", 15)] == rec["passes"]
+        assert counts[("all_gather", 2)] == rec["passes"] + its
+        assert {k for k in counts if k[0] != "all_reduce"} == {
+            ("all_gather", 2)}
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_lbfgsb_box_per_coordinate_is_cut_to_each_shard(runs, world):
+    """``Lbfgsb(lower=tuple, upper=tuple)``: each rank takes its shard of
+    the config's box; the solve is the unsharded one's (status and nfev
+    exact, x within 1e-8), the upper bounds active where they are below 2
+    and the free coordinates at 2 within the stopping test's 1e-6."""
+    lo, up = ranks.tuple_box()
+    want = ranks.summary(cns.minimize(
+        cns.objective(lambda x: torch.sum((x - 2.0) ** 2)),
+        torch.zeros(len(lo), dtype=torch.float64),
+        cns.Lbfgsb(m=5, lower=lo, upper=up), device="cpu"))
+    for got in records(runs, world, "lbfgsb_tuple_box"):
+        assert_matches(got, want)
+        np.testing.assert_allclose(got["x"].numpy(),
+                                   np.minimum(2.0, np.asarray(up)),
+                                   rtol=0, atol=1e-6)

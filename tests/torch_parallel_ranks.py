@@ -5,7 +5,8 @@
 runs one rank of a ``WORLD``-rank job: it joins the process group through a
 ``FileStore`` in ``DIR``, runs every case of ``SUITE`` ("batch": the batch
 split over ranks, ``parallel.minimize_sharded``; "model": each instance's n
-split, ``parallel.minimize_model_sharded``) and writes what each case
+split, ``parallel.minimize_model_sharded``; "examples": examples_torch/
+pod_scale.py and entry_torch.py) and writes what each case
 returned to ``DIR/SUITE_rank{RANK}.pt``.  :func:`run_ranks` starts the
 ``WORLD`` processes and loads their records.  It imports no JAX: the test
 files compare the records with the JAX package in their own process.
@@ -76,6 +77,82 @@ def mesh_2d_start():
     return np.random.default_rng(3).uniform(-2.0, 2.0, size=(8, N_MODEL))
 
 
+def model_box_start(n):
+    """One start of the model-sharded box leg, uniform in [1, 3]."""
+    return np.random.default_rng(1).uniform(1.0, 3.0, size=n)
+
+
+LBFGSB_BOX = (0.5, 4.0)
+#: The iteration cut of the boxed Rosenbrock's exact comparisons: from a
+#: random start its trajectory amplifies a last-bit difference (x 1e-14
+#: from JAX's at 10 iterations, 2.9e-10 at 20 and the value 1.5e-10 apart
+#: relative, 1.6e-9 at 40), so a short fixed budget is held.
+LBFGSB_CUT = 10
+
+
+def lbfgsb_cases():
+    """The model-sharded L-BFGS-B cases: (label, objective, n, box or
+    None, start, iteration cut or 0).  The view-form Rosenbrock at N_MODEL
+    (boxed from [1, 3], to its end and cut; unboxed from -1.2); at
+    N_UNEVEN, whose shards are odd on two ranks, the weighted quadratic."""
+    rosen_x = np.full(N_MODEL, -1.2)
+    quad_x = np.linspace(-2.0, 2.0, N_UNEVEN)
+    box_x = model_box_start(N_MODEL)
+    return [
+        ("lbfgsb_box", "rosen", N_MODEL, LBFGSB_BOX, box_x, 0),
+        ("lbfgsb_box_cut", "rosen", N_MODEL, LBFGSB_BOX, box_x, LBFGSB_CUT),
+        ("lbfgsb_free", "rosen", N_MODEL, None, rosen_x, 0),
+        ("lbfgsb_box_uneven", "quad", N_UNEVEN, LBFGSB_BOX,
+         model_box_start(N_UNEVEN), 0),
+        ("lbfgsb_free_uneven", "quad", N_UNEVEN, None, quad_x, 0),
+    ]
+
+
+def tuple_box(n=64):
+    """A box per coordinate of the config (tuples of n floats): every rank
+    solves with its own shard of it."""
+    lo = tuple(-1.0 - 0.01 * j for j in range(n))
+    up = tuple(1.0 + 0.05 * j for j in range(n))
+    return lo, up
+
+
+def cauchy_inputs(kind, n=N_MODEL, m=3):
+    """Inputs of one generalized-Cauchy-point walk of two lanes, float64:
+    ``kind`` "none" puts every coordinate on a bound its gradient points
+    out of (no positive breakpoint: the walk starts at the last sorted
+    one); "ties" gives whole classes of coordinates, spread over every
+    shard, one breakpoint (and a quarter of them a zero gradient), so the
+    walk must take ties in index order across ranks.  The history is a
+    real one (s.y > 0); returns numpy arrays ``x, g, lower, upper, w,
+    middle_inv, theta``."""
+    import cppnumericalsolvers_tpu_torch.solvers.lbfgsb as tl
+    from cppnumericalsolvers_tpu_torch.utils.linalg import invert_small
+
+    rng = np.random.default_rng(5)
+    b = 2
+    lower = np.full((b, n), -1.0)
+    upper = np.full((b, n), 1.0)
+    j = np.arange(n)
+    if kind == "none":
+        at_upper = rng.uniform(size=(b, n)) < 0.5
+        x = np.where(at_upper, upper, lower)
+        g = np.where(at_upper, -1.0, 1.0) * rng.uniform(0.5, 2.0, (b, n))
+    else:
+        x = np.where(j % 3 == 0, 0.5, 0.25) * np.ones((b, n))
+        g = np.where(j % 3 == 0, 1.0, -2.0) * np.ones((b, n))
+        g[1] *= 0.1  # the second lane crosses more breakpoints
+        g[:, j % 4 == 1] = 0.0
+    s_h = torch.from_numpy(rng.normal(size=(b, m, n)) * 0.1)
+    y_h = s_h * 2.0 + torch.from_numpy(rng.normal(size=(b, m, n)) * 0.01)
+    count = torch.full((b,), m, dtype=torch.int32)
+    theta = tl._dot(y_h[:, -1], y_h[:, -1]) / tl._dot(s_h[:, -1], y_h[:, -1])
+    middle_inv = invert_small(tl._build_middle(s_h, y_h, count, theta, m))
+    w = torch.cat([y_h.transpose(-1, -2),
+                   theta[:, None, None] * s_h.transpose(-1, -2)], dim=-1)
+    return (x, g, lower, upper, w.numpy(), middle_inv.numpy(),
+            theta.numpy())
+
+
 def summary(res):
     """The tensors of a result that the tests read, on the host."""
     if res is None:
@@ -94,16 +171,42 @@ def summary(res):
 
 
 def logged(fn):
-    """``fn()`` under a collective log: its summary, the log's entries and
-    the device-to-host reads of the loop."""
+    """``fn()`` under a collective log: its summary, the log's entries,
+    the device-to-host reads of the loop and the L-BFGS-B Cauchy walk's
+    passes."""
     from cppnumericalsolvers_tpu_torch.core.tree import any_lane
     from cppnumericalsolvers_tpu_torch.parallel.comm import CollectiveLog
+    from cppnumericalsolvers_tpu_torch.solvers.lbfgsb import (
+        generalized_cauchy_point as gcp)
 
-    reads0 = any_lane.reads
+    reads0, passes0 = any_lane.reads, gcp.passes
     with CollectiveLog() as log:
         res = fn()
     return {"result": summary(res), "entries": log.entries,
-            "reads0": reads0, "reads1": any_lane.reads}
+            "reads0": reads0, "reads1": any_lane.reads,
+            "passes": gcp.passes - passes0}
+
+
+def sharded_cauchy(kind, group, world, rank):
+    """The walk of :func:`cauchy_inputs` on this rank's shard, inside the
+    model group; every rank returns the whole ``(x_cauchy, c)``."""
+    from cppnumericalsolvers_tpu_torch.core.tree import model_axis_group
+    from cppnumericalsolvers_tpu_torch.parallel.comm import (
+        all_gather_cat, shard_sizes)
+    from cppnumericalsolvers_tpu_torch.solvers.lbfgsb import (
+        generalized_cauchy_point)
+
+    x, g, lower, upper, w, middle_inv, theta = (
+        torch.from_numpy(a) for a in cauchy_inputs(kind))
+    n = x.shape[-1]
+    sizes = shard_sizes(n, world)
+    start, size = sum(sizes[:rank]), sizes[rank]
+    cut = slice(start, start + size)
+    with model_axis_group(group, start, n):
+        xc, c = generalized_cauchy_point(
+            x[:, cut], g[:, cut], lower[:, cut], upper[:, cut],
+            w[:, cut], middle_inv, theta)
+    return {"x_cauchy": all_gather_cat(xc, group, -1, sizes), "c": c}
 
 
 def caught(fn):
@@ -189,8 +292,28 @@ def model_suite(world, rank):
         rosenbrock_view, torch.zeros((N_MODEL,), dtype=torch.float64),
         cns.Lbfgs(), batch_axis="batch"))
     out["bfgs"] = caught(lambda: solve(rosenbrock_view, x_rosen, cns.Bfgs()))
-    out["lbfgsb"] = caught(lambda: solve(rosenbrock_view, x_rosen,
-                                         cns.Lbfgsb(m=5)))
+    out["newton"] = caught(lambda: minimize_model_sharded(
+        cns.objective(rosenbrock_view, mode="second"), x_rosen,
+        cns.NewtonDescent(), mesh=mesh, **cpu))
+    for label, kind, n, box, x0, cut in lbfgsb_cases():
+        fn = rosenbrock_view if kind == "rosen" else quadratic(scale_u)
+        kw = {} if box is None else dict(lower=box[0], upper=box[1])
+        lstop = cns.Lbfgsb().default_stopping(torch.float64)
+        if cut:
+            lstop = lstop.replace(max_iterations=cut)
+        run = (logged if label == "lbfgsb_box_cut"
+               else lambda f: summary(f()))
+        out[label] = run(lambda: solve(
+            fn, torch.from_numpy(x0), cns.Lbfgsb(m=5, **kw),
+            stopping=lstop))
+    lo, up = tuple_box()
+    out["lbfgsb_tuple_box"] = summary(solve(
+        lambda x: torch.sum((x - 2.0) ** 2), torch.zeros(len(lo),
+                                                         dtype=torch.float64),
+        cns.Lbfgsb(m=5, lower=lo, upper=up)))
+    group = mesh.get_group("model")
+    for kind in ("none", "ties"):
+        out[f"cauchy_{kind}"] = sharded_cauchy(kind, group, world, rank)
     out["cg"] = logged(lambda: solve(quadratic(scale), x_quad,
                                      cns.ConjugateGradientDescent()))
     if world == 4:
@@ -208,7 +331,52 @@ def model_suite(world, rank):
     return out
 
 
-SUITES = {"batch": batch_suite, "model": model_suite}
+#: The short budget of the dry run's float64 L-BFGS-B solve.
+DRYRUN_SHORT = 5
+
+
+def dryrun_draws(n):
+    """entry_torch.dryrun_multichip(n)'s seed-1 draws (and
+    __graft_entry__.dryrun_multichip(n)'s), in its order."""
+    rng = np.random.default_rng(1)
+    return {"lbfgs": rng.uniform(-2.0, 2.0, size=(4 * n, 4)),
+            "lbfgsb": rng.uniform(1.0, 3.0, size=(2 * n, 4)),
+            "al": rng.uniform(-1.0, 1.0, size=(2 * n, 4)),
+            "mesh_2d": rng.uniform(-2.0, 2.0, size=(n // 2, 16))}
+
+
+def examples_suite(world, rank):
+    """examples_torch/pod_scale.py's ``main`` and entry_torch.py's
+    ``dryrun_multichip(world)`` on this world, ``entry()``'s step, and the
+    dry run's L-BFGS-B solve of its own draws in float64 on the same
+    batch mesh, to its end ("dryrun_lbfgsb_float64") and cut at
+    DRYRUN_SHORT iterations ("dryrun_lbfgsb_float64_short")."""
+    import entry_torch
+    from examples_torch import _common, pod_scale
+
+    from cppnumericalsolvers_tpu_torch.parallel import (
+        make_mesh, minimize_sharded)
+    from cppnumericalsolvers_tpu_torch.solvers import Lbfgsb
+
+    fn, args = entry_torch.entry("cpu")
+    out = {"pod_scale": pod_scale.main("cpu"),
+           "dryrun": entry_torch.dryrun_multichip(world, "cpu"),
+           "entry": fn(*args).detach().cpu()}
+    solver = Lbfgsb(m=5, lower=0.5, upper=4.0)
+    mesh = make_mesh(world, device="cpu")
+    stop = solver.default_stopping(torch.float64)
+    for label, cut in (("", 0), ("_short", DRYRUN_SHORT)):
+        res = minimize_sharded(
+            entry_torch._flagship_objective(),
+            torch.from_numpy(dryrun_draws(world)["lbfgsb"]), solver,
+            stop.replace(max_iterations=cut) if cut else stop, mesh=mesh,
+            device="cpu")
+        out["dryrun_lbfgsb_float64" + label] = _common.lanes(res)
+    return out
+
+
+SUITES = {"batch": batch_suite, "model": model_suite,
+          "examples": examples_suite}
 
 
 def main(suite, world, rank, where):
