@@ -49,9 +49,11 @@ calibrations:
   on their block of lanes, in a world of one under NCCL and on two gloo
   ranks sharing the card (``chip_smoke.py --parallel-rank``, processes of
   their own); ``minimize_model_sharded`` on ``Lbfgs(two_loop_impl="xla")``,
-  which runs no kernel, at n = 4,194,304 and 1,048,576 float64, and on
+  which runs no kernel, at n = 4,194,304 and 1,048,576 float64, on
   ``Lbfgsb`` at n = 1,048,576 (its Cauchy walk merged over the ranks, no
-  kernel either); and
+  kernel either), and on BFGS, Newton, both trust regions, Nelder-Mead and
+  preconditioned L-BFGS (part (f): no kernel; its world of one in the side
+  process); and
   ``two_loop_impl="xla"`` alone past the reach of q in shared memory, where
   the default ``"auto"`` runs ``flat_trip`` with q in device memory;
 * the calibrations of ``benchmarks_torch/roofline.py`` (``floors_main``):
@@ -119,7 +121,7 @@ Phases (each raises on failure, so the script then exits non-zero):
            each module's figures on the card against the CPU's, each
            solve's launches, pod_scale and the dry runs in their own
            processes.  The multi-device solves
-           (``parallel_main``, parts (a)-(e) of the comment above
+           (``parallel_main``, parts (a)-(f) of the comment above
            PARALLEL_SHAPES): bit-equality with the unsharded solves,
            launch counts, the collectives inside each loop and after it
            (``parallel.comm.CollectiveLog``), walls and reads; L-BFGS-B
@@ -381,8 +383,9 @@ PARALLEL_RANK_TIMEOUT = 400
 # The side process (``chip_smoke.py --side DIR``), started right after the
 # build and run beside the parity phase on the same card: the plain
 # version's passes over the MGH-376 suite that suite_main holds the
-# kernel's statuses to, and part (b)'s block-against-batch checks
-# (block_checks).  Neither launches a kernel that a count reads.
+# kernel's statuses to, part (b)'s block-against-batch checks
+# (block_checks) and part (f)'s world of one (dense_world_of_one).  None
+# launches a kernel that a count reads.
 SIDE_TIMEOUT = 900
 # (e) minimize_model_sharded on Lbfgsb(m=5, lower=0.5, upper=4.0) in a world
 #     of one under NCCL, the view-form extended Rosenbrock at n = 1,048,576
@@ -404,6 +407,56 @@ MODEL_LBFGSB_N = 1_048_576
 MODEL_LBFGSB_EVERY = 512
 MODEL_LBFGSB_CUT = 10
 MODEL_LBFGSB_XTOL = 1e-12
+# (f) minimize_model_sharded on the dense solvers (DENSE_RUNS), float64:
+#     in a world of one under NCCL, run in the side process after its block
+#     checks, against the unsharded card solve through the plain versions
+#     (the sharded solve takes the plain More-Thuente trip, as JAX's sharded
+#     solve takes XLA's lowering; Newton, the trust region and Nelder-Mead
+#     launch nothing either way): status, nfev, iterations and x bit-equal;
+#     on part (b)'s two gloo ranks (in their processes, after part (e))
+#     against the world of one at the same shape: status, nfev and
+#     iterations equal, x within DENSE_XTOL.  Every sharded solve launches
+#     no kernel; walls, reads and (on the two ranks) the collectives in
+#     each loop are recorded.  The objective is the view-form extended
+#     Rosenbrock (models.pairwise_rosenbrock's function: its strided
+#     slices make DTensor all-gather x, which gloo cannot do with card
+#     tensors), and BFGS's the weighted quadratic of
+#     tests/test_model_sharded.py, its weights a plain constant; BFGS's
+#     inverse Hessian at (4, 16,384) is 2 GiB a lane, so its two ranks
+#     (gloo gathers H through the host) run at (4, 4096), which the world of
+#     one also solves; the Hessian-free trust region starts from part (e)'s
+#     near-optimum start, one drawn per lane; preconditioned L-BFGS from
+#     the JAX test's -1.2 scaled by 1 + 0.05 k in lane k (from starts drawn
+#     in [-2, 2] it takes 256-361 iterations, and two ranks part from one by
+#     7.6e-3 in x at (8, 512) on the CPU, where from this start they agree
+#     within 1.1e-12 at (8, 4096)).  The cuts keep the two ranks' part
+#     within a minute beside the constrained and examples phases: to their
+#     ends they took 29, 26, 49, 37 iterations (BFGS, Newton, the dense trust
+#     region, preconditioned L-BFGS) and 59 s a rank on an H100 (gloo
+#     takes every gather through the host), each equal to the world of
+#     one.
+DENSE_RUNS = [
+    # (label, solver class, arguments, objective, mode, (B, n) in the
+    #  world of one, (B, n) on the two ranks, start, iteration cut)
+    ("bfgs", "Bfgs", {}, "quadratic", "first", (4, 16384), (4, 4096),
+     "linspace", 10),
+    ("newton", "NewtonDescent", {}, "rosenbrock", "second", (2, 4096),
+     (2, 4096), "uniform", 10),
+    ("tr", "TrustRegionNewton", {}, "rosenbrock", "second", (2, 4096),
+     (2, 4096), "uniform", 15),
+    ("tr_hessian_free", "TrustRegionNewton", {"hessian_free": True},
+     "rosenbrock", "first", (4, MODEL_LBFGSB_N), (4, MODEL_LBFGSB_N),
+     "near_optimum", 10),
+    ("nm", "NelderMead", {}, "rosenbrock", "none", (256, 128), (256, 128),
+     "uniform", 200),
+    ("lbfgs_pre", "Lbfgs", {"m": 10, "use_hessian_preconditioner": True},
+     "rosenbrock", "second", (8, 4096), (8, 4096), "classic", 15),
+]
+DENSE_XTOL = 1e-8
+#: The iteration cut of the two ranks' second solve of each run, under the
+#: collective log (which slows every operation): the collectives an
+#: iteration come from it.
+DENSE_LOG_ITERATIONS = 3
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # The calibration kernels (floors_main): launches each kernel is held to its
@@ -453,8 +506,17 @@ DRYRUN_LAUNCHES = {"lbfgs": ("flat_trip",), "lbfgsb": ("mt_trip",),
                    "al": NESTED, "mesh_2d": ()}
 
 
+#: Where :func:`log` also writes, once ``main`` has opened it: the full log,
+#: of which the GPU tool returns the last 24,000 bytes only.
+LOG_PATH = os.path.join(ROOT, "chiprun_out", "chip_smoke.log")
+_log_file = None
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+    if _log_file is not None:
+        _log_file.write(msg + "\n")
+        _log_file.flush()
 
 
 def card_line() -> str:
@@ -571,6 +633,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
+    global _log_file
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _log_file = open(LOG_PATH, "w")
     mods = Mods()
     cns, fs = mods.cns, mods.fs
 
@@ -909,6 +974,10 @@ def main() -> int:
     log(f"[main] parallel: {record['parallel_phase_s']:.1f} s "
         f"(waiting for the ranks {record['parallel']['ranks_s']:.1f} s)")
     mark("parallel")
+
+    record["parallel_f"] = parallel_dense_record(
+        side, record["parallel"].pop("dense_ranks"))
+    mark("parallel (f)")
 
     t0 = time.perf_counter()
     record["floors"] = floors_main(mods, dev)
@@ -3499,8 +3568,9 @@ def parallel_rank(rank: int, world: int, where: str) -> int:
     """One of part (b)'s gloo ranks (``chip_smoke.py --parallel-rank RANK
     WORLD DIR``), on card 0 with every other rank: the batch-sharded solves
     of :func:`pair_cases`, then the model-sharded solves of part (c) at
-    MODEL_PAIR_N and of part (e) (:func:`model_lbfgsb_case`), each timed,
-    then again under the collective log.  Writes its record to
+    MODEL_PAIR_N, of part (e) (:func:`model_lbfgsb_case`) and of part (f)
+    (DENSE_RUNS at their two-rank shapes), each timed, then again under the
+    collective log.  Writes its record to
     ``DIR/rank{RANK}.pt``."""
     import torch
     import torch.distributed as dist
@@ -3566,6 +3636,10 @@ def parallel_rank(rank: int, world: int, where: str) -> int:
             "passes": mods.lbb.generalized_cauchy_point.passes - passes0}
         del res
         _, rec["model_lbfgsb"]["collectives"] = logged_call(lbfgsb_solve)
+        dense = dense_mesh(world, dev)
+        rec["dense"] = {run[0]: dense_sharded(mods, run, run[6], dense, dev,
+                                              log=True)
+                        for run in DENSE_RUNS}
     finally:
         dist.destroy_process_group()
     torch.save(rec, os.path.join(where, f"rank{rank}.pt"))
@@ -3625,8 +3699,9 @@ SIDE_DIR = os.path.join(ROOT, "build", "side")
 
 def side_process(where: str) -> int:
     """The side process (``chip_smoke.py --side DIR``; see SIDE_TIMEOUT):
-    :func:`suite_plain_passes`, then :func:`block_checks`, each raising on
-    failure; writes ``DIR/side.pt``."""
+    :func:`suite_plain_passes`, then :func:`block_checks`, then part (f)'s
+    world of one (:func:`dense_world_of_one`), each raising on failure;
+    writes ``DIR/side.pt``."""
     import torch
 
     sys.path.insert(0, ROOT)
@@ -3641,6 +3716,10 @@ def side_process(where: str) -> int:
     rec["blocks"] = block_checks(mods, torch.device("cuda"))
     rec["blocks_s"] = time.perf_counter() - t0
     log(f"[side] block checks: {rec['blocks_s']:.1f} s")
+    t0 = time.perf_counter()
+    rec["dense"] = dense_world_of_one(mods, where)
+    rec["dense_s"] = time.perf_counter() - t0
+    log(f"[side] (f) world of one: {rec['dense_s']:.1f} s")
     torch.save(rec, os.path.join(where, "side.pt"))
     return 0
 
@@ -3691,6 +3770,216 @@ def wait_side(proc, where: str = SIDE_DIR) -> dict:
         log(f"[side] exited {proc.returncode}:\n" + text[-4000:])
         raise AssertionError("the side process failed")
     return torch.load(os.path.join(where, "side.pt"), weights_only=False)
+
+
+def quadratic_whole(x):
+    """tests/test_model_sharded.py's weighted quadratic, its weights built
+    from x's own width (a plain constant: DTensor takes it as replicated,
+    and the second-order evaluations on the gathered x as it is)."""
+    import torch
+
+    n = x.shape[-1]
+    scale = 1.0 + torch.arange(n, dtype=x.dtype, device=x.device) / n
+    return torch.sum(scale * x * x)
+
+
+def dense_problem(cns, run, shape, dev):
+    """``(objective, x0, solver, stopping)`` of one of DENSE_RUNS at
+    ``shape``, float64."""
+    import numpy as np
+    import torch
+
+    _, cls, kw, fn, mode, _, _, start, cut = run
+    b, n = shape
+    solver = getattr(cns, cls)(**kw)
+    stop = solver.default_stopping(torch.float64)
+    if cut:
+        stop = stop.replace(max_iterations=cut)
+    if start == "uniform":
+        x0 = uniform_start(b, n, -2.0, 2.0, torch.float64, dev)
+    elif start == "classic":
+        x0 = torch.full((b, n), -1.2, dtype=torch.float64) * (
+            1.0 + 0.05 * torch.arange(b, dtype=torch.float64))[:, None]
+    elif start == "linspace":
+        x0 = (torch.linspace(-2.0, 2.0, n, dtype=torch.float64)[None]
+              * (1.0 + 0.25 * torch.arange(b, dtype=torch.float64))[:, None])
+    else:  # part (e)'s start, one draw a lane
+        x = np.ones((b, n))
+        pairs = np.arange(0, n // 2, MODEL_LBFGSB_EVERY)
+        x.reshape(b, -1, 2)[:, pairs] = np.random.default_rng(SEED).uniform(
+            *PARALLEL_BOX_STARTS, (b, len(pairs), 2))
+        x0 = torch.from_numpy(x)
+    obj = cns.objective(rosenbrock_view if fn == "rosenbrock"
+                        else quadratic_whole, mode)
+    return obj, x0.to(dev), solver, stop
+
+
+def dense_mesh(world, dev):
+    """A (1, world) ("batch", "model") mesh: the runs' x0 are (B, n)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(dev.type, (1, world),
+                            mesh_dim_names=("batch", "model"))
+
+
+def dense_sharded(mods, run, shape, mesh, dev, log=False) -> dict:
+    """One model-sharded solve of ``run`` at ``shape``: its host summary,
+    wall, launches and reads; with ``log`` also the collectives of a second
+    solve cut at DENSE_LOG_ITERATIONS under the collective log and its
+    iterations."""
+    from cppnumericalsolvers_tpu_torch import parallel
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    obj, x0, solver, stop = dense_problem(mods.cns, run, shape, dev)
+
+    def solve(stop=stop):
+        return parallel.minimize_model_sharded(
+            obj, x0, solver, stop, mesh=mesh, batch_axis="batch",
+            device=dev)
+
+    zero_launches(mods)
+    reads0 = any_lane.reads
+    res, wall = timed_call(solve)
+    out = {"result": host_summary(res), "wall_s": wall,
+           "launches": launch_counts(mods), "reads": any_lane.reads - reads0}
+    del res
+    if log:
+        cut, out["collectives"] = logged_call(lambda: solve(stop.replace(
+            max_iterations=DENSE_LOG_ITERATIONS)))
+        out["log_iterations"] = int(cut.progress.num_iterations.max())
+    return out
+
+
+def dense_world_of_one(mods, where, dev=None) -> dict:
+    """Part (f) in a world of one under NCCL (the side process): each of
+    DENSE_RUNS sharded at its world-of-one shape against the unsharded
+    card solve through the plain versions, bit for bit, and, where the
+    two ranks' shape differs, sharded at that shape too.  Raises on a
+    difference or a launch."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    cns = mods.cns
+    dev = torch.device("cuda") if dev is None else dev
+    store = os.path.join(where, "dense_store")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    rows = {}
+    try:
+        mesh = dense_mesh(1, dev)
+        for run in DENSE_RUNS:
+            label, shape, pair_shape = run[0], run[5], run[6]
+            obj, x0, solver, stop = dense_problem(cns, run, shape, dev)
+            if hasattr(solver, "two_loop_impl"):
+                solver = dataclasses.replace(solver, two_loop_impl="xla")
+            zero_launches(mods)
+            with mods.swapped({"mt_trip": mods.fl.mt_trip_reference}):
+                ref, ref_wall = timed_call(lambda: cns.minimize_batched(
+                    obj, x0, solver, stop, device=dev))
+            ref_launches = launch_counts(mods)
+            ref = host_summary(ref)
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            got = dense_sharded(mods, run, shape, mesh, dev)
+            res = got["result"]
+            its = int(res["iterations"].max())
+            row = {"shape": list(shape), "dtype": "float64", "ranks": 1,
+                   "backend": "nccl", "wall_s": got["wall_s"],
+                   "unsharded_wall_s": ref_wall,
+                   "unsharded_launches": ref_launches,
+                   "launches": got["launches"],
+                   "iterations": its, "nfev": int(res["nfev"].sum()),
+                   "reads_per_iteration": got["reads"] / max(its, 1),
+                   "status": res["status"].tolist(),
+                   "bit_equal": same_bits(res, ref),
+                   "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                if dev.type == "cuda" else None),
+                   "result": res}
+            if tuple(pair_shape) != tuple(shape):
+                row["pair_width"] = dense_sharded(
+                    mods, run, pair_shape, mesh, dev)
+            rows[label] = row
+            log(f"[side] (f) model-sharded {label} {tuple(shape)} float64, "
+                f"world of one, NCCL: {its} iterations, nfev "
+                f"{row['nfev']} over the lanes, wall {row['wall_s']:.3f} s "
+                f"(unsharded {ref_wall:.3f} s), "
+                f"{row['reads_per_iteration']:.1f} reads an iteration, peak "
+                f"{row['peak_gib']} GiB; bit-equal to the unsharded solve "
+                f"{row['bit_equal']}")
+            if not all(row["bit_equal"].values()) or any(
+                    got["launches"].values()) or any(ref_launches.values()):
+                raise AssertionError(f"(f) {label}: {row}")
+            del got
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+    return rows
+
+
+def parallel_dense_record(side, ranks) -> dict:
+    """Part (f): its world of one ran in the side process (``side``'s
+    ``dense`` rows), its two ranks in part (b)'s rank processes (``ranks``:
+    each rank's part (f) records); holds them to each other
+    (:func:`parallel_dense_check`) and returns what the record keeps."""
+    one = side["dense"]
+    return {"world_of_one": {label: {k: v for k, v in row.items()
+                                     if k not in ("result", "pair_width")}
+                             for label, row in one.items()},
+            "world_of_one_s": side["dense_s"],
+            "two_ranks": parallel_dense_check(ranks, one)}
+
+
+def parallel_dense_check(ranks, one) -> list:
+    """Part (f) on part (b)'s two gloo ranks (``ranks``: each rank's part
+    (f) records, by label) against the world of one (``one``:
+    :func:`dense_world_of_one`'s rows) at the same shape:
+    status, nfev and iterations equal on every rank, x within DENSE_XTOL,
+    no launch; the collectives in each loop, per iteration of the logged
+    solve, recorded."""
+    rows = []
+    for run in DENSE_RUNS:
+        label, pair_shape = run[0], run[6]
+        ref = one[label]
+        want = (ref["pair_width"] if "pair_width" in ref else ref)["result"]
+        recs = [r[label] for r in ranks]
+        got = recs[0]["result"]
+        its = int(got["iterations"].max())
+        in_loop = recs[0]["collectives"]["in_loop"]
+        log_its = recs[0]["log_iterations"]
+        row = {"case": label, "shape": list(pair_shape), "dtype": "float64",
+               "ranks": PARALLEL_RANKS, "backend": "gloo",
+               "iterations": its, "nfev": int(got["nfev"].sum()),
+               "same": {k: all(bool((r["result"][k] == want[k]).all())
+                               for r in recs)
+                        for k in ("status", "nfev", "iterations")},
+               "x_max_abs_diff": max(
+                   float((r["result"]["x"] - want["x"]).abs().max())
+                   for r in recs),
+               "wall_s_by_rank": [r["wall_s"] for r in recs],
+               "reads_per_iteration": recs[0]["reads"] / max(its, 1),
+               "launches_by_rank": [r["launches"] for r in recs],
+               "collectives_per_iteration": {
+                   k: v / max(log_its, 1) for k, v in in_loop.items()}}
+        per_iteration = {k: round(v, 2) for k, v in
+                         row["collectives_per_iteration"].items()}
+        log(f"[parallel] (f) model-sharded {label} {tuple(pair_shape)} "
+            f"float64, {PARALLEL_RANKS} gloo ranks on one card: {its} "
+            f"iterations, nfev {row['nfev']} over the lanes, same as the "
+            f"world of one {row['same']}, |x - x1| "
+            f"{row['x_max_abs_diff']:.3e}, walls by rank "
+            f"{[round(w, 3) for w in row['wall_s_by_rank']]} s, "
+            f"{row['reads_per_iteration']:.1f} reads and collectives "
+            f"{per_iteration} an iteration")
+        launched = [c for c in row["launches_by_rank"] if any(c.values())]
+        if (not all(row["same"].values()) or launched
+                or row["x_max_abs_diff"] > DENSE_XTOL):
+            raise AssertionError(f"(f) {label} on two ranks: {row}")
+        rows.append(row)
+    return rows
 
 
 def _lane_leaves(res) -> int:
@@ -4765,7 +5054,9 @@ def examples_main(mods, dev) -> dict:
 
 def parallel_main(mods, dev, rank_procs, blocks) -> dict:
     """The multi-device solves (the ``parallel_main`` phase): parts (a)-(e)
-    of the comment above PARALLEL_SHAPES, each raising on failure.  Part
+    of the comment above PARALLEL_SHAPES, each raising on failure, and the
+    ranks' records of part (f) (``dense_ranks``, which ``main`` holds to
+    the side process's world of one).  Part
     (b)'s block checks (``blocks``) ran in the side process.  Part (b)'s,
     (c)'s and (e)'s two ranks (``rank_procs``, started by ``main`` with the
     constrained phase) are waited for first; then
@@ -4805,6 +5096,7 @@ def parallel_main(mods, dev, rank_procs, blocks) -> dict:
     rec["b_blocks"] = blocks
     rec["c_two_ranks"] = parallel_model_pair_check(ranks, one)
     rec["e_two_ranks"] = parallel_model_lbfgsb_pair_check(ranks, one_lbfgsb)
+    rec["dense_ranks"] = [r["dense"] for r in ranks]
     rec["d"] = parallel_xla_alone(mods, dev)
     launches = {name: 0 for name in REPLACES}
     for row in rec["a"]:

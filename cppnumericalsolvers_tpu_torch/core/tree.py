@@ -15,6 +15,7 @@ import torch
 import torch.distributed as dist
 
 __all__ = [
+    "all_gather_cat",
     "any_lane",
     "fixed_sum",
     "lane_amax",
@@ -26,9 +27,13 @@ __all__ = [
     "lane_sum",
     "masked_while",
     "model_axis_group",
+    "model_cut",
+    "model_gather",
     "model_group",
     "model_shard",
     "model_sum",
+    "model_width",
+    "shard_sizes",
     "strided_sum",
     "tree_map",
     "tree_where",
@@ -129,6 +134,65 @@ def model_shard() -> tuple[int, int | None]:
     """``(offset, n)`` of the enclosing :func:`model_axis_group`: the global
     index of this rank's first element and the global n."""
     return _MODEL_SHARD
+
+
+def model_width(local: int) -> int:
+    """The global n of a lane whose shard is ``local`` wide: ``local``
+    outside :func:`model_axis_group`."""
+    return local if _MODEL_SHARD[1] is None else _MODEL_SHARD[1]
+
+
+def shard_sizes(n: int, parts: int) -> list[int]:
+    """DTensor's ``Shard`` split of ``n`` over ``parts`` ranks: contiguous
+    blocks of ``ceil(n / parts)``, the last ones shorter or empty."""
+    chunk = -(-n // parts)
+    return [max(0, min(chunk, n - r * chunk)) for r in range(parts)]
+
+
+def all_gather_cat(t: torch.Tensor, group, dim: int = 0,
+                   sizes: list[int] | None = None) -> torch.Tensor:
+    """Every rank's ``t`` concatenated along ``dim`` in rank order of
+    ``group``: one ``all_gather``.  ``sizes`` gives each rank's extent
+    along ``dim`` where they differ (each is padded to the largest for the
+    gather and trimmed after)."""
+    world = dist.get_world_size(group)
+    dim = dim % t.dim()
+    src = t
+    if sizes is not None:
+        pad = max(sizes) - t.shape[dim]
+        if pad:
+            shape = list(t.shape)
+            shape[dim] = pad
+            src = torch.cat([t, t.new_zeros(shape)], dim=dim)
+    src = src.contiguous()
+    parts = [torch.empty_like(src) for _ in range(world)]
+    dist.all_gather(parts, src, group=group)
+    if sizes is not None:
+        parts = [p.narrow(dim, 0, k) for p, k in zip(parts, sizes)]
+    return torch.cat(parts, dim=dim)
+
+
+def _model_sizes() -> list[int]:
+    return shard_sizes(_MODEL_SHARD[1], dist.get_world_size(_MODEL_GROUP))
+
+
+def model_gather(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard ``t`` of a last axis split as a lane's n-vector is
+    made whole on every rank by one ``all_gather`` over the model group;
+    ``t`` itself outside :func:`model_axis_group`."""
+    if _MODEL_GROUP is None:
+        return t
+    return all_gather_cat(t, _MODEL_GROUP, -1, _model_sizes())
+
+
+def model_cut(t: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """This rank's shard of a whole axis ``dim`` (the last by default) of
+    global length n: the inverse of :func:`model_gather`, with no
+    collective; ``t`` itself outside :func:`model_axis_group`."""
+    if _MODEL_GROUP is None:
+        return t
+    size = _model_sizes()[dist.get_rank(_MODEL_GROUP)]
+    return t.narrow(dim, _MODEL_SHARD[0], size)
 
 
 def model_sum(s: torch.Tensor) -> torch.Tensor:

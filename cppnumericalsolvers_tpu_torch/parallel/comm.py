@@ -1,9 +1,10 @@
 """Collectives of the multi-device solves, and a log of them.
 
-The sharded solves call ``torch.distributed`` in two places only: the
-lane reductions of ``core.tree`` (an ``all_reduce`` of one scalar per lane,
-inside the model-sharded loop) and the gathers here, which assemble a full
-result on every rank once a solve has ended.  :class:`CollectiveLog`
+The sharded solves call ``torch.distributed`` in two places only:
+``core.tree``'s collectives inside the model-sharded loop (the lane
+reductions, an ``all_reduce`` of one scalar per lane, and the gathers and
+sums of whole n-vectors that the dense solvers make) and the gathers here,
+which assemble a full result on every rank once a solve has ended.  :class:`CollectiveLog`
 records every collective a block of code issues, those that DTensor issues
 for the objective included, so a caller can count what runs inside a loop.
 """
@@ -17,7 +18,7 @@ import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.driver import MinimizeResult, resolve_device
-from ..core.tree import any_lane, tree_map
+from ..core.tree import all_gather_cat, any_lane, shard_sizes, tree_map
 
 __all__ = [
     "CollectiveLog",
@@ -43,36 +44,6 @@ def rank_device(device=None) -> torch.device:
             f"LOCAL_RANK {local} has no card: {count} visible; pass device="
         )
     return torch.device("cuda", local)
-
-
-def shard_sizes(n: int, parts: int) -> list[int]:
-    """DTensor's ``Shard`` split of ``n`` over ``parts`` ranks: contiguous
-    blocks of ``ceil(n / parts)``, the last ones shorter or empty."""
-    chunk = -(-n // parts)
-    return [max(0, min(chunk, n - r * chunk)) for r in range(parts)]
-
-
-def all_gather_cat(t: torch.Tensor, group, dim: int = 0,
-                   sizes: list[int] | None = None) -> torch.Tensor:
-    """Every rank's ``t`` concatenated along ``dim`` in rank order of
-    ``group``: one ``all_gather``.  ``sizes`` gives each rank's extent
-    along ``dim`` where they differ (each is padded to the largest for the
-    gather and trimmed after)."""
-    world = dist.get_world_size(group)
-    dim = dim % t.dim()
-    src = t
-    if sizes is not None:
-        pad = max(sizes) - t.shape[dim]
-        if pad:
-            shape = list(t.shape)
-            shape[dim] = pad
-            src = torch.cat([t, t.new_zeros(shape)], dim=dim)
-    src = src.contiguous()
-    parts = [torch.empty_like(src) for _ in range(world)]
-    dist.all_gather(parts, src, group=group)
-    if sizes is not None:
-        parts = [p.narrow(dim, 0, k) for p, k in zip(parts, sizes)]
-    return torch.cat(parts, dim=dim)
 
 
 def max_over(value: int, group, device) -> int:

@@ -15,9 +15,20 @@ sharded in two ways:
   Operations DTensor can shard stay sharded (elementwise, reductions,
   ``x.view(-1, 2)`` where every shard splits into whole pairs); where it
   cannot it all-gathers, as GSPMD does (strided slices such as
-  ``x[0::2]``).  A constant tensor of length n must be a DTensor on the
-  same mesh, e.g. ``distribute_tensor(c, mesh, [Shard(0)])``: DTensor
-  refuses to mix it with a plain tensor.
+  ``x[0::2]``).  A constant tensor of length n is either a plain tensor,
+  which DTensor takes as replicated (``implicit_replication``: each rank
+  uses its slice, no collective), or a DTensor on the same mesh, e.g.
+  ``distribute_tensor(c, mesh, [Shard(0)])``.
+* **Second derivatives.**  DTensor cannot carry ``torch.func.jvp``, on
+  which ``hessian`` rests too, so these are evaluated replicated on the
+  gathered x, as GSPMD does where it cannot partition: the Hessian as each
+  rank's *columns*, ``(B, n, n_local)``, one ``jvp`` of the gradient along
+  each of its coordinates (the columns ``torch.func.hessian`` forms, bit
+  for bit, with the work split over the ranks; one ``all_gather`` of x);
+  a Hessian-vector product whole from the gathered x and v (one
+  ``all_gather``), cut to the shard.  The objective must then also accept
+  a plain tensor: its constants plain, not DTensors.  Nfev is billed as
+  the unsharded solve bills it.
 * **The solver's reductions** are explicit: inside
   ``core.tree.model_axis_group`` every per-lane sum and infinity norm of
   the loop (the two-loop's and the searches' dot products, the stopping
@@ -26,21 +37,38 @@ sharded in two ways:
   through the whole loop; every rank computes the same per-lane scalars,
   so their loops run the same trips.
 
-L-BFGS runs as ``Lbfgs(two_loop_impl="xla")`` (the push, the two-loop and
-the More-Thuente trips in plain PyTorch, no kernel), forced here as the JAX
-package forces its pure-XLA lowering; gradient descent runs as it is, its
-More-Thuente trips in plain PyTorch too (``core.tree.model_axis_group``),
-and so does conjugate gradient with its Armijo search.  L-BFGS-B runs as it
-is, its box sharded like x (a per-coordinate box of the config is cut to
-each rank's shard), its search's trips in plain PyTorch: every sum over n
-is all-reduced, and its generalized-Cauchy-point walk merges the ranks'
-sorted breakpoints, one pass at a time, in two collectives a pass (an
-``all_gather`` of each rank's next breakpoint, an ``all_reduce`` of the
-crossed coordinate's 2m + 5 values;
-``solvers.lbfgsb.generalized_cauchy_point``).  None of these four launches
-a kernel.  These are the solvers whose reductions over n all go through
-``core.tree``'s lane reductions; any other raises with its reason
-(:func:`_check_solver`).
+Every solver runs; none launches a kernel (a kernel's reductions cover one
+shard), as the JAX package's sharded solve runs no Pallas kernel:
+
+* L-BFGS as ``Lbfgs(two_loop_impl="xla")`` (the push, the two-loop and the
+  More-Thuente trips in plain PyTorch), forced here as the JAX package
+  forces its pure-XLA lowering; with the Hessian-diagonal preconditioner
+  each rank takes the diagonal of its Hessian columns.  Gradient descent
+  and conjugate gradient run as they are, their searches' trips in plain
+  PyTorch.
+* L-BFGS-B runs as it is, its box sharded like x (a per-coordinate box of
+  the config is cut to each rank's shard): every sum over n is
+  all-reduced, and its generalized-Cauchy-point walk merges the ranks'
+  sorted breakpoints, one pass at a time, in two collectives a pass (an
+  ``all_gather`` of each rank's next breakpoint, an ``all_reduce`` of the
+  crossed coordinate's 2m + 5 values;
+  ``solvers.lbfgsb.generalized_cauchy_point``).
+* BFGS holds each rank's rows of every inverse Hessian, ``(B, n_local,
+  n)``: ``H g`` and ``H y`` are row-local products of the gathered
+  vector; three ``all_gather``s of n-vectors an iteration (g; y and s;
+  ``H y``) beside the scalar all-reduces.
+* Newton gathers the Hessian's columns and the gradient (two
+  ``all_gather``s an iteration: ``B n^2`` and ``B n`` values) and every
+  rank solves the same dense system, as GSPMD replicates
+  ``jnp.linalg.solve``, keeping its shard of the direction.
+* The trust region: the dense form's product with the rank's Hessian
+  columns is a partial sum of the whole vector, one ``all_reduce`` of
+  ``B n`` values a CG step; the Hessian-free form keeps O(n / W) state a
+  rank and gathers x and v for each product (one ``all_gather``).  The CG
+  budget counts the global n.
+* Nelder-Mead holds each rank's coordinates of every vertex, ``(B, n + 1,
+  n_local)``, its distances maxima all-reduced (two ``all_reduce``s an
+  iteration beside the evaluations').
 
 Combine with the batch axis for a 2-D mesh: ``x0`` of shape ``(B, n)``
 with ``batch_axis`` splits the lanes over that axis (contiguous blocks,
@@ -51,10 +79,11 @@ each lane's n over ``model_axis``.  Every rank gets the whole result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
-from torch.func import grad_and_value, vmap
+from torch.func import grad_and_value, jacrev, jvp, vmap
 
 from ..core.driver import (
     MinimizeResult,
@@ -62,17 +91,14 @@ from ..core.driver import (
     _solve_batched,
     _unbatch_result,
 )
-from ..core.objective import MODE_NONE, Objective
+from ..core.objective import MODE_FIRST, MODE_NONE, MODE_SECOND, Objective
 from ..core.progress import StoppingCriteria
-from ..core.tree import model_axis_group
-from ..solvers.bfgs import Bfgs
-from ..solvers.conjugate_gradient import CgInternals, ConjugateGradientDescent
-from ..solvers.gradient_descent import GradientDescent
-from ..solvers.lbfgs import Lbfgs, LbfgsInternals
+from ..core.tree import model_axis_group, model_cut, model_gather
+from ..solvers.bfgs import BfgsInternals
+from ..solvers.conjugate_gradient import CgInternals
+from ..solvers.lbfgs import LbfgsInternals
 from ..solvers.lbfgsb import Lbfgsb, LbfgsbInternals
-from ..solvers.nelder_mead import NelderMead
-from ..solvers.newton import NewtonDescent
-from ..solvers.trust_region import TrustRegionNewton
+from ..solvers.nelder_mead import NmInternals
 from .comm import all_gather_cat, gather_lanes, rank_device, shard_sizes
 from .sharded import make_mesh
 
@@ -88,45 +114,17 @@ def _force_xla_two_loop(solver: SolverBase) -> SolverBase:
     return solver
 
 
-#: Why each solver the port does not model-shard cannot be, by class.
-_UNSHARDABLE = {
-    Bfgs: "it holds an n x n inverse Hessian per lane",
-    NewtonDescent: "it forms and solves with the n x n Hessian per lane",
-    TrustRegionNewton: "it holds the n x n Hessian per lane, and its "
-                       "Hessian-free form's CG-Steihaug sums over n outside "
-                       "core.tree's lane reductions",
-    NelderMead: "it holds an (n + 1) x n simplex per lane",
-}
-
-#: Fields of a result's internals that are sharded along n, by type.
+#: Fields of a result's internals that are sharded along n, by type, with
+#: the axis each is sharded on.
 _ALONG_N = {
-    LbfgsInternals: ("s_memory", "y_memory", "s_pending", "y_pending"),
-    CgInternals: ("previous_gradient", "direction"),
-    LbfgsbInternals: ("s_history", "y_history", "lower", "upper"),
+    LbfgsInternals: {"s_memory": -1, "y_memory": -1, "s_pending": -1,
+                     "y_pending": -1},
+    CgInternals: {"previous_gradient": -1, "direction": -1},
+    LbfgsbInternals: {"s_history": -1, "y_history": -1, "lower": -1,
+                      "upper": -1},
+    BfgsInternals: {"inverse_hessian": -2},
+    NmInternals: {"simplex": -1},
 }
-
-
-def _check_solver(solver: SolverBase) -> None:
-    """Raise unless every reduction over n of ``solver``'s loop goes
-    through ``core.tree``'s lane reductions: ``Lbfgs`` without the Hessian
-    preconditioner, ``GradientDescent``, ``ConjugateGradientDescent`` and
-    ``Lbfgsb``."""
-    if isinstance(solver, Lbfgs):
-        if not solver.use_hessian_preconditioner:
-            return
-        why = ("the Hessian-diagonal preconditioner needs the Hessian, "
-               "which the model-sharded objective does not evaluate")
-    elif isinstance(solver, (GradientDescent, ConjugateGradientDescent,
-                             Lbfgsb)):
-        return
-    else:
-        why = next((v for k, v in _UNSHARDABLE.items()
-                    if isinstance(solver, k)),
-                   "its reductions over n do not go through core.tree's "
-                   "lane reductions")
-    raise ValueError(
-        f"{type(solver).__name__} is not model-sharded in the port: {why}."
-    )
 
 
 def _shard_box(solver: SolverBase, start: int, size: int) -> SolverBase:
@@ -169,21 +167,58 @@ class _ShardedObjective(Objective):
         return g.redistribute(self.mesh, [Shard(1)]).to_local().contiguous()
 
     def batched_value_and_grad(self, x):
+        from torch.distributed.tensor.experimental import implicit_replication
+
         xg = self._global(x)
-        if self.mode == MODE_NONE:
-            return self._value(vmap(self.fn)(xg)), torch.zeros_like(x)
-        g, v = vmap(grad_and_value(self.fn))(xg)
+        with implicit_replication():
+            if self.mode == MODE_NONE:
+                return self._value(vmap(self.fn)(xg)), torch.zeros_like(x)
+            g, v = vmap(grad_and_value(self.fn))(xg)
         return self._value(v), self._shard(g)
 
     def batched_value(self, x):
-        return self._value(vmap(self.fn)(self._global(x)))
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return self._value(vmap(self.fn)(self._global(x)))
+
+    @functools.cached_property
+    def _whole(self) -> Objective:
+        return Objective(self.fn, self.mode)
+
+    def hessian(self, x):
+        """This rank's columns of every lane's Hessian, ``(B, n,
+        n_local)``: x gathered, then one ``jvp`` of the gradient along each
+        of the rank's coordinates, as ``torch.func.hessian`` forms its
+        columns (so the columns have its bits)."""
+        self._require(MODE_SECOND, "hessian")
+        whole = model_gather(x)
+        n = whole.shape[-1]
+        basis = model_cut(torch.eye(n, dtype=x.dtype, device=x.device), 0)
+        if not basis.shape[0]:
+            return whole.new_zeros((*whole.shape, 0))
+        jac = jacrev(self.fn)
+
+        def columns(xl):
+            return vmap(lambda e: jvp(jac, (xl,), (e,))[1])(basis).movedim(
+                0, -1)
+
+        return vmap(columns)(whole)
+
+    def hvp(self, x, v):
+        """This rank's shard of every lane's ``H(x) v``: x and v gathered
+        (one ``all_gather``), the product formed whole as
+        ``Objective.hvp`` forms it, then cut to the shard."""
+        self._require(MODE_FIRST, "hvp")
+        x, v = model_gather(torch.stack([x, v]))
+        return model_cut(self._whole.hvp(x, v))
 
     def _unsupported(self, *args):
         # The un-batched calls would evaluate fn on one rank's shard alone.
-        raise ValueError("the model-sharded solve evaluates batched values "
-                         "and gradients only")
+        raise ValueError("the model-sharded solve evaluates batched values, "
+                         "gradients, Hessians and their products only")
 
-    value = value_and_grad = gradient = hessian = hvp = _unsupported
+    value = value_and_grad = gradient = _unsupported
 
 
 def minimize_model_sharded(
@@ -211,7 +246,6 @@ def minimize_model_sharded(
     ``model_axis``."""
     solver.check_mode(objective)
     solver = _force_xla_two_loop(solver)
-    _check_solver(solver)
     device = rank_device(device)
     x0 = torch.as_tensor(x0)
     if not x0.is_floating_point():
@@ -251,15 +285,15 @@ def minimize_model_sharded(
         res = _solve_batched(sharded, local, solver, stopping, trace, None,
                              None, device)
 
-    def along_n(t):
-        return all_gather_cat(t, model_group, -1, sizes)
-
-    res.state.x = along_n(res.state.x)
-    res.state.gradient = along_n(res.state.gradient)
-    fields = _ALONG_N.get(type(res.internals), ())
+    res.state.x = all_gather_cat(res.state.x, model_group, -1, sizes)
+    res.state.gradient = all_gather_cat(res.state.gradient, model_group, -1,
+                                        sizes)
+    fields = _ALONG_N.get(type(res.internals), {})
     if fields:
         res.internals = dataclasses.replace(res.internals, **{
-            name: along_n(getattr(res.internals, name)) for name in fields})
+            name: all_gather_cat(getattr(res.internals, name), model_group,
+                                 axis, sizes)
+            for name, axis in fields.items()})
     if batch_axis is not None:
         res = gather_lanes(res, mesh.get_group(batch_axis), b)
     return _unbatch_result(res) if batch_axis is None else res

@@ -15,6 +15,14 @@ the ``mt_trip`` kernel on the card.  Guards preserved:
   (bfgs.h:94-106);
 * curvature-gated update ``y.s > eps |s||y|`` skipping degenerate pairs
   (bfgs.h:114-134).
+
+Model-sharded (inside ``core.tree.model_axis_group``) each rank holds its
+rows of every inverse Hessian, ``(B, n_local, n)``: ``H g`` and ``H y`` are
+row-local products of the gathered vector (each row's sum keeps its
+unsharded bits), the dot products are partial sums all-reduced
+(``core.tree.model_sum``), and the rank-2 update takes ``s`` and ``H y``
+whole.  Three ``all_gather``s an iteration (g; y and s; H y) beside the
+all-reduces; outside the context every collective is the identity.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
-from ..core.tree import fixed_sum, lane_matvec
+from ..core.tree import (
+    fixed_sum, lane_matvec, model_gather, model_shard, model_sum,
+    model_width)
 from ..linesearch.dispatch import run_line_search
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 
@@ -35,12 +45,20 @@ __all__ = ["Bfgs", "BfgsInternals"]
 
 @dataclasses.dataclass
 class BfgsInternals:
-    inverse_hessian: torch.Tensor  # (B, n, n)
+    inverse_hessian: torch.Tensor  # (B, n, n); a shard's rows (B, n_local, n)
     fresh: torch.Tensor  # (B,) bool: identity approximation (scales alpha0)
 
 
 def _dot(a, b):
-    return fixed_sum(a * b)
+    return model_sum(fixed_sum(a * b))
+
+
+def _eye_rows(n_local, like):
+    """This rank's rows of the n x n identity (all of it unsharded)."""
+    offset = model_shard()[0]
+    eye = torch.eye(model_width(n_local), dtype=like.dtype,
+                    device=like.device)
+    return eye[offset:offset + n_local]
 
 
 def _norm(a):
@@ -60,9 +78,9 @@ class Bfgs(SolverBase):
     def init_batched(self, objective: Objective,
                      state: FunctionState) -> BfgsInternals:
         b, n = state.x.shape
-        eye = torch.eye(n, dtype=state.x.dtype, device=state.x.device)
+        eye = _eye_rows(n, state.x)
         return BfgsInternals(
-            inverse_hessian=eye.expand(b, n, n).clone(),
+            inverse_hessian=eye.expand(b, *eye.shape).clone(),
             fresh=torch.ones((b,), dtype=torch.bool, device=state.x.device),
         )
 
@@ -76,11 +94,10 @@ class Bfgs(SolverBase):
         del stopping
         dtype = state.x.dtype
         eps = torch.finfo(dtype).eps
-        n = state.x.shape[-1]
         g = state.gradient
-        eye = torch.eye(n, dtype=dtype, device=state.x.device)
+        eye = _eye_rows(state.x.shape[-1], state.x)
 
-        direction = -lane_matvec(internals.inverse_hessian, g)
+        direction = -lane_matvec(internals.inverse_hessian, model_gather(g))
         phi = _dot(g, direction)
 
         # PD/NaN reset (bfgs.h:84-92).
@@ -116,12 +133,14 @@ class Bfgs(SolverBase):
         ys = _dot(y, s)
         accept = ys > eps * _norm(s) * _norm(y)
         rho = (1.0 / torch.where(accept, ys, one))[:, None, None]
-        hy = lane_matvec(h, y)
+        y_full, s_full = model_gather(torch.stack([y, s]))
+        hy = lane_matvec(h, y_full)
         yhy = _dot(y, hy)[:, None, None]
+        hy_full = model_gather(hy)
         h_updated = (
             h
-            - rho * (_outer(s, hy) + _outer(hy, s))
-            + rho * (rho * yhy + 1.0) * _outer(s, s)
+            - rho * (_outer(s, hy_full) + _outer(hy, s_full))
+            + rho * (rho * yhy + 1.0) * _outer(s, s_full)
         )
         return next_state, BfgsInternals(
             inverse_hessian=torch.where(accept[:, None, None], h_updated, h),

@@ -46,7 +46,7 @@ import torch
 
 from ..core.driver import MinimizeResult, SolverBase
 from ..core.objective import FunctionState
-from ..core.tree import lane_amax
+from ..core.tree import lane_amax, model_shard
 from ..linesearch.dispatch import run_line_search
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.flat_solve import flat_lbfgs_solve
@@ -340,8 +340,11 @@ class Lbfgs(SolverBase):
                     "use_hessian_preconditioner requires a second-mode "
                     "objective"
                 )
+            # Model-sharded, the Hessian is the shard's columns: its
+            # diagonal entries sit the shard's offset below the top.
             hess_diag = torch.diagonal(
-                objective.hessian(state.x), dim1=-2, dim2=-1)
+                objective.hessian(state.x), offset=-model_shard()[0],
+                dim1=-2, dim2=-1)
             precond = 1.0 / (torch.abs(hess_diag) + eps)
             nfev = nfev + 1
             # The preconditioned recursion runs no kernel in the JAX package

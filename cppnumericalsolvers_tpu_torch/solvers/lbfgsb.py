@@ -60,7 +60,7 @@ from ..core.status import Status
 from ..core.tree import (
     any_lane, fixed_sum, lane_amax, lane_amin, lane_any, lane_gram,
     lane_lexmin, lane_matvec, masked_while, model_group, model_shard,
-    model_sum, strided_sum, tree_where)
+    model_sum, model_width, strided_sum, tree_where)
 from ..linesearch.more_thuente import DEFAULT_MAX_FEV
 from ..ops.fused_linesearch import batched_more_thuente
 from ..utils.linalg import invert_small, solve_small
@@ -234,9 +234,7 @@ def generalized_cauchy_point(x, gradient, lower, upper, w, middle_inv,
     b_, nl = x.shape
     dev = x.device
     sharded = model_group() is not None
-    offset, n = model_shard()
-    if n is None:
-        n = nl
+    offset, n = model_shard()[0], model_width(nl)
     t, d = _breakpoints(x, gradient, lower, upper)
     order = torch.argsort(t, dim=-1, stable=True)  # ascending breakpoints
     rank = torch.argsort(order, dim=-1, stable=True)

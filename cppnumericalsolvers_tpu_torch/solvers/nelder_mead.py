@@ -13,6 +13,14 @@ candidate points (reflection, expansion, outer and inner contraction).  The
 branches are selected with ``torch.where``; nfev counts only the
 evaluations the reference's control flow would make, as in the JAX
 package.  No kernel.
+
+Model-sharded (inside ``core.tree.model_axis_group``) each rank holds its
+coordinates of every vertex, ``(B, n + 1, n_local)``: the vertex count, the
+centroid's divisor and the sort positions count the global n, the initial
+simplex puts vertex c's step on the rank that owns coordinate c - 1, and
+the distances are maxima all-reduced over the ranks (two all-reduces an
+iteration beside the evaluations').  The values come back whole from the
+evaluation, so the sort and every branch are the same on every rank.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria, conservative_stopping
+from ..core.tree import lane_amax, model_shard, model_width
 
 __all__ = ["NelderMead", "NmInternals"]
 
@@ -42,11 +51,16 @@ class NmInternals:
 def _initial_simplex(x: torch.Tensor) -> torch.Tensor:
     """The adaptive initial simplex of every lane of ``x`` ``(B, n)``
     (:202-217): vertex c is ``x + delta_c e_c`` with ``delta = 0.05 |x_c|``
-    (0.001 where ``|x_c| <= 1e-6``)."""
+    (0.001 where ``|x_c| <= 1e-6``).  Model-sharded, ``x`` is this rank's
+    shard, and the rows of its coordinates' steps are those of their global
+    indices."""
+    b, k = x.shape
+    offset, n = model_shard()[0], model_width(k)
     delta = torch.where(torch.abs(x) > 1e-6, 0.05 * torch.abs(x),
                         torch.full_like(x, 0.001))
-    steps = torch.cat([torch.zeros_like(x)[:, None, :],
-                       torch.diag_embed(delta)], dim=1)
+    steps = torch.cat([x.new_zeros((b, 1 + offset, k)),
+                       torch.diag_embed(delta),
+                       x.new_zeros((b, n - offset - k, k))], dim=1)
     return x[:, None, :] + steps
 
 
@@ -85,13 +99,14 @@ class NelderMead(SolverBase):
     ):
         del stopping
         simplex = internals.simplex
-        b, n = state.x.shape
+        b, width = state.x.shape
+        n = model_width(width)
         nv = n + 1
 
         def eval_points(points):
             k = points.shape[1]
             return objective.batched_value(
-                points.reshape(b * k, n)).reshape(b, k)
+                points.reshape(b * k, width)).reshape(b, k)
 
         f = eval_points(simplex)
         nfev = state.nfev + nv
@@ -99,7 +114,7 @@ class NelderMead(SolverBase):
 
         # Degeneracy restart around the best vertex (nelder_mead.h:120-139).
         best = _rows(simplex, order[:, 0])
-        dist = torch.amax(torch.abs(simplex - best[:, None, :]), dim=-1)
+        dist = lane_amax(torch.abs(simplex - best[:, None, :]))
         dist = dist.scatter(1, order[:, :1], 0.0)
         degenerate = torch.amax(dist, dim=-1) < _DEGENERATE_TOL
         restart = _initial_simplex(best)
@@ -122,10 +137,8 @@ class NelderMead(SolverBase):
         x_bar = (torch.sum(simplex, dim=1) - worst) / n
 
         x_r = (1.0 + _RHO) * x_bar - _RHO * worst
-        coincident = (
-            (torch.amax(torch.abs(x_r - x_bar), dim=-1) < _DEGENERATE_TOL)
-            | (torch.amax(torch.abs(x_r - worst), dim=-1) < _DEGENERATE_TOL)
-        )
+        near = lane_amax(torch.abs(torch.stack([x_r - x_bar, x_r - worst])))
+        coincident = (near[0] < _DEGENERATE_TOL) | (near[1] < _DEGENERATE_TOL)
         x_e = (1.0 + _RHO * _XI) * x_bar - _RHO * _XI * worst
         x_c_out = (1.0 + _RHO * _GAMMA) * x_bar - _RHO * _GAMMA * worst
         x_c_in = (1.0 - _GAMMA) * x_bar + _GAMMA * worst

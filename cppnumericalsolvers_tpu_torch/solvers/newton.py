@@ -7,6 +7,13 @@ dense solve (``torch.linalg.solve_ex``, a library call, as
 ``jnp.linalg.solve`` is in the JAX package), and the second-order Armijo
 search (armijo.h:67-103).  A singular shifted Hessian gives non-finite
 directions, as the JAX package's solve does; nothing raises.  No kernel.
+
+Model-sharded (inside ``core.tree.model_axis_group``) the objective gives
+each rank its columns of the Hessian; they and the gradient are gathered
+whole (two ``all_gather``s an iteration), and every rank solves the same
+dense system, as GSPMD replicates ``jnp.linalg.solve``, computes the
+curvature term on the whole vectors (the unsharded bits) and keeps its
+shard of the direction.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
-from ..core.tree import fixed_sum, lane_matvec
+from ..core.tree import fixed_sum, lane_matvec, model_cut, model_gather
 from ..linesearch.armijo import armijo
 from ..utils.linalg import condition_test_enabled, frobenius_condition
 
@@ -48,16 +55,17 @@ class NewtonDescent(SolverBase):
         internals,
         stopping: StoppingCriteria,
     ):
-        n = state.x.shape[-1]
-        hessian = objective.hessian(state.x)
+        hessian = model_gather(objective.hessian(state.x))
         gradient = state.gradient
+        n = hessian.shape[-1]
         shifted = hessian + self.safe_guard * torch.eye(
             n, dtype=state.x.dtype, device=state.x.device)
-        delta_x = torch.linalg.solve_ex(shifted, -gradient)[0]
+        delta_full = torch.linalg.solve_ex(shifted, -model_gather(gradient))[0]
 
         # Per-lane products in a fixed order (a batched matmul's bits
         # depend on the batch count).
-        curvature = fixed_sum(delta_x * lane_matvec(hessian, delta_x))
+        curvature = fixed_sum(delta_full * lane_matvec(hessian, delta_full))
+        delta_x = model_cut(delta_full)
         ls = armijo(objective.batched_value, state.x, state.value, gradient,
                     delta_x, alpha_init=1.0, curvature_term=curvature)
         new_x = state.x + ls.alpha[:, None] * delta_x

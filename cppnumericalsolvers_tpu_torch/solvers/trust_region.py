@@ -19,6 +19,16 @@ carry.
 The rejection loop runs the CG loop inside it on the lanes still rejecting.
 ``hessian_free=True`` replaces the dense ``(B, n, n)`` Hessian by batched
 Hessian-vector products (``Objective.hvp``), one per CG step.  No kernel.
+
+Model-sharded (inside ``core.tree.model_axis_group``) every dot product and
+norm is a partial sum or maximum all-reduced over the ranks, and the CG
+budget counts the global n.  The dense form holds the rank's columns of the
+Hessian, ``(B, n, n_local)``: a product with them is a partial sum of the
+whole vector, all-reduced (``B n`` values a CG step) and cut back to the
+shard; cond(H), where asked for, takes the gathered Hessian.  The
+Hessian-free form keeps x, the gradient, p, r and d sharded (O(n / W) a
+rank) and asks the objective for each product, which evaluates it on the
+gathered vectors.
 """
 
 from __future__ import annotations
@@ -30,7 +40,9 @@ import torch
 from ..core.driver import SolverBase
 from ..core.objective import FunctionState, Objective
 from ..core.progress import StoppingCriteria
-from ..core.tree import fixed_sum, lane_matvec, masked_while
+from ..core.tree import (
+    fixed_sum, lane_amax, lane_matvec, masked_while, model_cut, model_gather,
+    model_sum, model_width)
 from ..utils.linalg import condition_test_enabled, frobenius_condition
 
 __all__ = ["TrustRegionNewton", "TrInternals", "solve_tr_subproblem"]
@@ -46,7 +58,7 @@ class TrInternals:
 
 def _dot(a, b):
     # A fixed order: the lane's bits do not depend on its batch (C#12).
-    return fixed_sum(a * b)
+    return model_sum(fixed_sum(a * b))
 
 
 def _norm(a):
@@ -186,22 +198,23 @@ class TrustRegionNewton(SolverBase):
             evaluations += 1
 
             def hvp(v):
-                return lane_matvec(hessian, v)
+                return model_cut(model_sum(lane_matvec(hessian, v)))
 
             hessian_nfev = 1  # the fresh Hessian (:199-201)
             # cond(H) costs an inverse: only when the criterion is on.
             condition_hessian = (
-                frobenius_condition(hessian)
+                frobenius_condition(model_gather(hessian))
                 if condition_test_enabled(stopping)
                 else torch.zeros_like(current_value)
             )
 
         # Eisenstat-Walker forcing (:215-220).
-        gradient_inf = torch.amax(torch.abs(gradient), dim=-1)
+        gradient_inf = lane_amax(torch.abs(gradient))
         forcing = torch.clamp(torch.sqrt(gradient_inf), max=0.5)
         cg_tolerance = self.cg_forcing_coefficient * forcing * gradient_inf
 
-        cg_max_iterations = n + max(self.cg_max_iterations_floor, 0)
+        cg_max_iterations = model_width(n) + max(
+            self.cg_max_iterations_floor, 0)
         retry_limit = min(max(self.rejection_retry_limit, 0), 1000)
 
         def reject_body(c, active):

@@ -173,16 +173,6 @@ def test_shape_validation(runs, world):
         assert r["shape_2d"].startswith("x0 must be (B, n) with batch_axis")
 
 
-@pytest.mark.parametrize("world", WORLDS)
-def test_unshardable_solver_raises(runs, world):
-    """BFGS and Newton stay refused, each message with its reason."""
-    for r in runs[world]:
-        assert "not model-sharded" in r["bfgs"]
-        assert "n x n inverse Hessian" in r["bfgs"]
-        assert "not model-sharded" in r["newton"]
-        assert "n x n Hessian" in r["newton"]
-
-
 @functools.lru_cache(maxsize=None)
 def jax_cg_quadratic():
     res = jcns.minimize(
