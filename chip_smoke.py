@@ -7,8 +7,8 @@ Ten paths, the first four through ``minimize_batched(objective, x0_batch,
 Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
 solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the
 seventh through the examples and ``entry_torch.py``, the eighth through the
-multi-device solves of ``parallel``, the last through the bench's
-calibrations:
+multi-device solves of ``parallel`` and the scaling harness, the last
+through the bench's calibrations:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -56,6 +56,12 @@ calibrations:
   process); and
   ``two_loop_impl="xla"`` alone past the reach of q in shared memory, where
   the default ``"auto"`` runs ``flat_trip`` with q in device memory;
+* the scaling harness (``scaling_main``): ``benchmarks_torch/scaling.py``
+  as a user runs it, a subprocess whose ranks are processes of their own
+  under NCCL, one a card, and its three legs' worlds of one in this
+  process at the card sizes (``Lbfgs(two_loop_impl="xla")`` and the
+  model-sharded solves: no kernel, as the JAX harness's legs take XLA's
+  lowering);
 * the calibrations of ``benchmarks_torch/roofline.py`` (``floors_main``):
   the trip floor, whose loop launches ``trip_floor`` once a trip, and the
   launch floor, whose chains launch ``launch_floor`` from the host and in a
@@ -126,6 +132,8 @@ Phases (each raises on failure, so the script then exits non-zero):
            launch counts, the collectives inside each loop and after it
            (``parallel.comm.CollectiveLog``), walls and reads; L-BFGS-B
            and the dense solvers block against whole batch (part (b)).
+           The scaling harness (``scaling_main``): its JSON line held,
+           each leg's world of one bit-equal to the unsharded solve.
            The calibration kernels (``floors_main``): bit-equal to their
            plain versions after one launch and after a trip loop's or a
            chain's length, timed, then the two calibrations run once;
@@ -189,8 +197,13 @@ NESTED_TRACE = 16               # trace capacity on the main path
 # fits its time limit on a slow host with every parity shape.  At 40
 # the prologue's and the epilogue's means a launch differ (PERF.md §6).
 NESTED_TIMED_ITERATIONS = 20
-# The batch-minor loop (path A) and the routing measurement.
+# The batch-minor loop (path A).
 T_SHAPES = [(1024, 32), (1024, 256), (1024, 1024), (512, 2048)]
+# The routing measurement: the headline shape alone, whose batch-minor
+# prologue the kernels line reads (lane_sweep.py times both prologues at
+# every T_SHAPES shape); the other three cost 35 s on a slow host, which
+# the scaling phase needs to keep the script inside its time limit.
+ROUTING_SHAPES = [HEADLINE_SHAPE]
 # The batch-minor loop is also held against its plain versions where n is
 # not a multiple of four (mt_trip's 4-byte loads, a warp and a block per
 # lane) and where a lane tile (8 lanes) and the cluster's slices of j are
@@ -457,6 +470,18 @@ DENSE_XTOL = 1e-8
 #: collective log (which slows every operation): the collectives an
 #: iteration come from it.
 DENSE_LOG_ITERATIONS = 3
+# The scaling harness (scaling_main, after part (f)): benchmarks_torch/
+# scaling.py run as a user runs it (a subprocess, the default device and
+# sizes: NCCL, a process a card, W = 1 up to the visible cards), its JSON
+# line held (exit 0, backend "nccl", cards and sizes as the card reports,
+# every rate finite and positive, the card named); then, in this process
+# under a world of one (NCCL, a FileStore under build/, as parallel_main's),
+# each leg's world-of-one solve at the harness's card sizes cut at
+# SCALING_CUT iterations, bit-equal to the unsharded card solve: the batch
+# leg to minimize_batched, the model and 2-D legs to the unsharded "xla"
+# solve; status, nfev, iterations and x, and no launch on either side.
+SCALING_CUT = 10
+SCALING_TIMEOUT = 600
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # The calibration kernels (floors_main): launches each kernel is held to its
@@ -980,6 +1005,12 @@ def main() -> int:
     mark("parallel (f)")
 
     t0 = time.perf_counter()
+    record["scaling"] = scaling_main(mods, dev, card)
+    record["scaling_phase_s"] = time.perf_counter() - t0
+    log(f"[main] scaling: {record['scaling_phase_s']:.1f} s")
+    mark("scaling")
+
+    t0 = time.perf_counter()
     record["floors"] = floors_main(mods, dev)
     for name, count in record["floors"]["launches"].items():
         main_launches[name] += count
@@ -1030,7 +1061,7 @@ def main() -> int:
     mark("nested timing")
 
     routing_rows = []
-    for b, n in T_SHAPES:
+    for b, n in ROUTING_SHAPES:
         known = next((r for r in nested_rows
                       if tuple(r["shape"]) == (b, n)), None)
         routing_rows.append(routing(
@@ -5049,6 +5080,136 @@ def examples_main(mods, dev) -> dict:
         f"{one['dryrun_launches']}; dryrun_multichip(2) on two gloo ranks "
         f"{[round(r['dryrun_s'], 2) for r in pair]} s launches "
         f"{pair[0]['dryrun_launches']}; entry() {entry}")
+    return rec
+
+
+def scaling_harness(card) -> dict:
+    """benchmarks_torch/scaling.py as a user runs it, its line held; see
+    SCALING_CUT."""
+    import math
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "benchmarks_torch", "scaling.py")],
+        cwd=ROOT, capture_output=True, text=True, timeout=SCALING_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f"scaling.py exited {proc.returncode}:\n"
+                             + proc.stderr[-4000:])
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    sizes = [w for w in (1, 2, 4, 8) if w <= cards]
+    rates = [line["mesh_2d_batch_x_model"]["lane_iters_per_s"]]
+    for axis in ("batch_axis", "model_axis"):
+        for stat in line[axis]["iters_per_s"].values():
+            rates += [stat["mean"], stat["min"], stat["max"]]
+    one = (line["batch_axis"]["iters_per_s"]["1"]["mean"],
+           line["model_axis"]["iters_per_s"]["1"]["mean"],
+           line["mesh_2d_batch_x_model"]["lane_iters_per_s"])
+    log(f"[scaling] benchmarks_torch/scaling.py, NCCL, worlds "
+        f"{line['sizes']} of {line['cards']} cards, {wall:.1f} s: one card "
+        f"batch ({line['per_device_batch']}, {line['dim']}) {one[0]:.1f} "
+        f"iterations/s, model n = {line['model_axis']['dim']} {one[1]:.2f} "
+        f"iterations/s, 2-D {line['mesh_2d_batch_x_model']['mesh']} mesh "
+        f"({line['mesh_2d_batch_x_model']['batch']}, "
+        f"{line['mesh_2d_batch_x_model']['n']}) {one[2]:.1f} "
+        f"lane-iterations/s; metric {line['metric']} = {line['value']} | "
+        f"{card}")
+    log("[scaling] " + json.dumps(line))
+    if (line["backend"] != "nccl" or line["cards"] != cards
+            or line["sizes"] != sizes or line["device"] != card
+            or not all(math.isfinite(r) and r > 0 for r in rates)
+            or (line["value"] is None) != (sizes[-1] == 1)):
+        raise AssertionError(f"scaling.py's line: {line}")
+    return {"line": line, "wall_s": wall}
+
+
+def scaling_world_of_one(mods, dev) -> dict:
+    """Each harness leg's world-of-one solve at the card sizes, cut at
+    SCALING_CUT, against the unsharded card solve; see SCALING_CUT.  Runs
+    inside a world of one."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from benchmarks_torch import scaling
+    from cppnumericalsolvers_tpu_torch import parallel
+
+    cns, sizes = mods.cns, scaling.CARD_SIZES
+    obj = scaling.objective()
+    stop = scaling.fixed_iter_stopping(torch.float32, SCALING_CUT)
+    xla = cns.Lbfgs(m=M, two_loop_impl="xla")
+    batch_mesh = parallel.make_mesh(1, axis="batch", device=dev)
+    model_mesh = parallel.make_mesh(1, axis="model", device=dev)
+    mesh_2d = init_device_mesh(dev.type, (1, 1),
+                               mesh_dim_names=("batch", "model"))
+    xb = torch.from_numpy(scaling.batch_starts(1, sizes, count=1)[0]).to(dev)
+    xm = torch.from_numpy(scaling.model_starts(1, sizes, count=1)[0]).to(dev)
+    x2 = torch.from_numpy(scaling.mesh_2d_start(sizes)).to(dev)
+    cases = [
+        ("batch", tuple(xb.shape),
+         lambda: parallel.minimize_sharded(obj, xb, xla, stop,
+                                           mesh=batch_mesh, device=dev),
+         lambda: cns.minimize_batched(obj, xb, xla, stop)),
+        ("model", tuple(xm.shape),
+         lambda: parallel.minimize_model_sharded(
+             obj, xm, cns.Lbfgs(m=M), stop, mesh=model_mesh, device=dev),
+         lambda: cns.minimize(obj, xm, xla, stop)),
+        ("mesh_2d", tuple(x2.shape),
+         lambda: parallel.minimize_model_sharded(
+             obj, x2, cns.Lbfgs(m=M), stop, mesh=mesh_2d,
+             batch_axis="batch", device=dev),
+         lambda: cns.minimize_batched(obj, x2, xla, stop)),
+    ]
+    rows = {}
+    for label, shape, sharded, unsharded in cases:
+        zero_launches(mods)
+        res, wall = timed_call(sharded)
+        launches = launch_counts(mods)
+        got = host_summary(res)
+        del res
+        zero_launches(mods)
+        res, plain_wall = timed_call(unsharded)
+        plain_launches = launch_counts(mods)
+        want = host_summary(res)
+        del res
+        row = {"shape": list(shape), "dtype": "float32",
+               "iterations": int(got["iterations"].max()),
+               "bit_equal": same_bits(got, want), "wall_s": wall,
+               "unsharded_wall_s": plain_wall, "launches": launches,
+               "unsharded_launches": plain_launches}
+        log(f"[scaling] {label} leg, world of one, NCCL, {shape} float32 "
+            f"cut at {SCALING_CUT}: {row['iterations']} iterations, "
+            f"bit-equal to the unsharded solve {row['bit_equal']}, wall "
+            f"{wall:.3f} s (unsharded {plain_wall:.3f} s), launches "
+            f"{sum(launches.values())} and {sum(plain_launches.values())}")
+        if (not all(row["bit_equal"].values()) or any(launches.values())
+                or any(plain_launches.values())):
+            raise AssertionError(f"scaling {label} leg: {row}")
+        rows[label] = row
+    return rows
+
+
+def scaling_main(mods, dev, card) -> dict:
+    """The scaling phase: the harness in a subprocess, then its legs'
+    worlds of one in this process; see SCALING_CUT."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.empty_cache()  # leave the harness's ranks the card
+    rec = scaling_harness(card)
+    store = os.path.join(ROOT, "build", f"scaling_store_{os.getpid()}")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1)
+    try:
+        rec["world_of_one"] = scaling_world_of_one(mods, dev)
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(store):  # the store's last user may remove it
+            os.remove(store)
     return rec
 
 

@@ -7,8 +7,8 @@ runs one rank of a ``WORLD``-rank job: it joins the process group through a
 split over ranks, ``parallel.minimize_sharded``; "model": each instance's n
 split, ``parallel.minimize_model_sharded``; "dense": the same for BFGS,
 Newton, both trust regions, Nelder-Mead and preconditioned L-BFGS;
-"examples": examples_torch/pod_scale.py and entry_torch.py) and writes what
-each case
+"examples": examples_torch/pod_scale.py and entry_torch.py; "scaling":
+benchmarks_torch/scaling.py's legs) and writes what each case
 returned to ``DIR/SUITE_rank{RANK}.pt``.  :func:`run_ranks` starts the
 ``WORLD`` processes and loads their records.  It imports no JAX: the test
 files compare the records with the JAX package in their own process.
@@ -520,8 +520,40 @@ def examples_suite(world, rank):
     return out
 
 
+#: The scaling suite's sizes: benchmarks/scaling.py's batch leg (64 lanes a
+#: rank at n = 16), the model leg at N_MODEL, the 2-D leg's (8, 1024), all
+#: cut at SCALING_CUT iterations in float64.
+SCALING_CUT = 10
+SCALING_MESH_2D = (2, 2)
+
+
+def scaling_sizes():
+    from benchmarks_torch import scaling
+
+    return scaling.Sizes(per_device_batch=64, dim=16, model_dim=N_MODEL,
+                         lanes_2d=8, n_2d=1024, max_iters=SCALING_CUT,
+                         repeats=1)
+
+
+def scaling_suite(world, rank):
+    """benchmarks_torch/scaling.py's three legs at this world, float64: the
+    warm-up solve of each (the 2-D leg's on a SCALING_MESH_2D mesh, at W =
+    4)."""
+    from benchmarks_torch import scaling
+
+    sizes, cpu = scaling_sizes(), torch.device("cpu")
+    out = {"batch": summary(scaling.batch_leg(world, sizes, cpu,
+                                              torch.float64)[0]),
+           "model": summary(scaling.model_leg(world, sizes, cpu,
+                                              torch.float64)[0])}
+    if world == SCALING_MESH_2D[0] * SCALING_MESH_2D[1]:
+        out["mesh_2d"] = summary(scaling.mesh_2d_leg(
+            SCALING_MESH_2D, sizes, cpu, torch.float64)[0])
+    return out
+
+
 SUITES = {"batch": batch_suite, "model": model_suite, "dense": dense_suite,
-          "examples": examples_suite}
+          "examples": examples_suite, "scaling": scaling_suite}
 
 
 def main(suite, world, rank, where):
