@@ -20,8 +20,11 @@ nothing on stdout and exits 1: nothing runs on the CPU.
   lane-iterations per second (summed iterations over the host-clock time of
   a solve ending in ``synchronize()``, the median of GRID_REPS after a warm
   solve), trips and host ms a trip, ``flat_trip``'s and the evaluation's
-  device ms a trip (``torch.profiler``), and the bound with its binding
-  term (``roofline.trip_bound``) and its share of the measured time;
+  device ms a trip (``torch.profiler``), the bound with its binding
+  term (``roofline.trip_bound``) and its share of the measured time, and
+  the attainable time of a batched iteration with its share of the
+  measured one and its bottleneck (``roofline.analyze_shape``:
+  ``attainable_ms``, ``pct_of_attainable``, ``bottleneck``);
   ``batched_iters_per_s`` is the (1024, 32) row's rate.
 * ``solver_legs`` and ``al_leg``: the other solvers, L-BFGS-B and the
   augmented-Lagrangian leg at the shapes and cuts of
@@ -46,7 +49,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -56,21 +58,11 @@ GRID_REPS = 3
 #: The flat solve of the grid (chip_smoke.py's main path).
 M = 10
 MAX_FEV = 20
-#: Evaluations profiled for the evaluation's device time a trip.
-EVAL_CALLS = 20
 BASELINE_CONVERGED_PCT = 95.0  # the reference's (its README.md:8-9)
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def _sync(device) -> None:
@@ -139,8 +131,9 @@ def _kernel_device_ms(prof, key) -> float | None:
 def grid_row(b, n, device="cuda", trip_floor_us=None, reps=GRID_REPS
              ) -> dict:
     """One shape of the throughput grid (see the module docstring).  On a
-    card the device times come from ``torch.profiler`` and the bound from
-    ``trip_floor_us``; elsewhere they are None (not measured)."""
+    card the device times come from ``torch.profiler`` and the bounds from
+    ``trip_floor_us`` (:func:`grid_bounds`); elsewhere they are None (not
+    measured)."""
     import torch
 
     import cppnumericalsolvers_tpu_torch as cns
@@ -184,16 +177,35 @@ def grid_row(b, n, device="cuda", trip_floor_us=None, reps=GRID_REPS
         ms = _kernel_device_ms(prof, "flat_trip")
         row["flat_trip_device_ms_per_trip"] = (
             None if ms is None else ms / res.trips)
-        busy = roofline.device_busy_us(lambda: [
-            obj.batched_value_and_grad(x0) for _ in range(EVAL_CALLS)])
-        row["eval_device_ms_per_trip"] = (
-            None if busy is None else busy / EVAL_CALLS / 1e3)
+        row["eval_device_ms_per_trip"] = roofline.measure_eval_standalone(
+            b, n, device=device)
     if trip_floor_us is not None and row["eval_device_ms_per_trip"]:
-        bound = roofline.trip_bound(res.trips, row["bytes_per_trip"],
-                                    row["eval_device_ms_per_trip"],
-                                    trip_floor_us / 1e3)
-        row.update(bound)
-        row["bound_share"] = bound["bound_ms"] / (wall * 1e3)
+        grid_bounds(row, roofline.card_params(device),
+                    row["eval_device_ms_per_trip"], trip_floor_us / 1e3)
+    return row
+
+
+def grid_bounds(row, card, eval_ms, trip_floor_ms) -> dict:
+    """Add a grid row's bounds from the evaluation's device ms and the trip
+    floor's ms: ``roofline.trip_bound``'s (``bound_ms``, ``bound_by``, its
+    terms, ``bound_share`` of the solve's wall) and, for a batched
+    iteration (the wall over the batched iterations, the trips over them
+    as nfev), ``roofline.analyze_shape``'s ``attainable_ms``,
+    ``pct_of_attainable`` and ``bottleneck``."""
+    from benchmarks_torch import roofline
+
+    bound = roofline.trip_bound(row["trips"], row["bytes_per_trip"],
+                                eval_ms, trip_floor_ms)
+    row.update(bound)
+    row["bound_share"] = bound["bound_ms"] / (row["wall_s"] * 1e3)
+    its = row["batched_iterations"]
+    shape = roofline.analyze_shape(
+        {"batch": row["B"], "n": row["n"],
+         "nfev_per_iter": row["trips"] / its,
+         "per_batched_iter_ms": row["wall_s"] * 1e3 / its},
+        card, eval_ms, trip_floor_ms)
+    for key in ("attainable_ms", "pct_of_attainable", "bottleneck"):
+        row[key] = shape[key]
     return row
 
 
@@ -337,7 +349,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     t_all = time.perf_counter()
-    card = card_line()
+    card = roofline.card_line()
     name, limit = [part.strip() for part in card.rsplit(",", 1)]
     device = {"name": name, "power_limit": limit,
               "kind": torch.cuda.get_device_name(0),

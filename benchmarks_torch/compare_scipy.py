@@ -30,7 +30,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -109,13 +108,6 @@ def compare(ours_ok, ours_nfev, sp_ok, sp_nfev, t_ours, t_sp) -> dict:
     }
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda",
@@ -129,6 +121,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     import suite_bench
+    from benchmarks_torch.roofline import card_line
     from cppnumericalsolvers_tpu_torch.models import mgh_benchmark_instances
 
     torch.set_num_threads(1)

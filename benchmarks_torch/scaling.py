@@ -462,7 +462,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     import torch
 
-    from benchmarks_torch.compare_scipy import card_line
+    from benchmarks_torch.roofline import card_line
     from cppnumericalsolvers_tpu_torch.core.driver import resolve_device
 
     resolve_device(args.device)  # no GPU: raises, no fallback

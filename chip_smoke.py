@@ -8,7 +8,7 @@ Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
 solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the
 seventh through the examples and ``entry_torch.py``, the eighth through the
 multi-device solves of ``parallel`` and the scaling harness, the last
-through the bench's calibrations:
+through the bench's calibrations and its roofline:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -52,8 +52,8 @@ through the bench's calibrations:
   which runs no kernel, at n = 4,194,304 and 1,048,576 float64, on
   ``Lbfgsb`` at n = 1,048,576 (its Cauchy walk merged over the ranks, no
   kernel either), and on BFGS, Newton, both trust regions, Nelder-Mead and
-  preconditioned L-BFGS (part (f): no kernel; its world of one in the side
-  process); and
+  preconditioned L-BFGS (part (f): no kernel; its world of one in a
+  helper process); and
   ``two_loop_impl="xla"`` alone past the reach of q in shared memory, where
   the default ``"auto"`` runs ``flat_trip`` with q in device memory;
 * the scaling harness (``scaling_main``): ``benchmarks_torch/scaling.py``
@@ -65,7 +65,12 @@ through the bench's calibrations:
 * the calibrations of ``benchmarks_torch/roofline.py`` (``floors_main``):
   the trip floor, whose loop launches ``trip_floor`` once a trip, and the
   launch floor, whose chains launch ``launch_floor`` from the host and in a
-  CUDA graph.
+  CUDA graph;
+* the roofline of ``benchmarks_torch/roofline.py`` (``roofline_main``): its
+  fixed-budget solves (the flat loop: ``flat_trip`` once a trip) and
+  attainable bound at an L2-resident and a streaming shape, with
+  ``floors_main``'s trip floor, and its chain of ``lbfgs_prologue``
+  launches.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
@@ -100,7 +105,9 @@ Phases (each raises on failure, so the script then exits non-zero):
            against itself summed in another order).  Drift: at one shape
            per kernel, each float32 kernel's and plain version's distance
            to the plain version in float64 on the same inputs, side by
-           side;
+           side.  Beside it, helper processes (``chip_smoke.py --side DIR
+           JOB...``, HELPER_JOBS) make the plain versions' and the CPU's
+           solves that phase 4 holds the kernels' to;
 4. main    flat: ``minimize_batched`` in float32 on the pairwise extended
            Rosenbrock at the throughput-grid shapes, launch counts set to 0
            just before and read just after; the result is held against the
@@ -136,16 +143,21 @@ Phases (each raises on failure, so the script then exits non-zero):
            each leg's world of one bit-equal to the unsharded solve.
            The calibration kernels (``floors_main``): bit-equal to their
            plain versions after one launch and after a trip loop's or a
-           chain's length, timed, then the two calibrations run once;
+           chain's length, timed, then the two calibrations run once.
+           The roofline (``roofline_main``): every figure finite, every
+           row at most 100% of its attainable bound with its bottleneck
+           named, the launches counted;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
            needs, whole flat and nested solves side by side, and the
            iteration-granular loop on the two history layouts side by side
            (the routing measurement behind ``Lbfgs._TRANSPOSED_N_MAX``);
-6. report  one JSON line per shape, the ``kernels`` line, the card line and,
-           last, the device line.  ``chiprun_out/chip_smoke.json`` keeps the
-           full record.
+6. report  one JSON line per shape, the ``kernels`` line, the card line
+           and, last, the device line.  ``chiprun_out/chip_smoke.json``
+           keeps the full record, with each kernel's attainable time and
+           bound regime (``kernel_attainable``: bytes only beyond the L2,
+           operations, a history kernel's chain).
 
 With no GPU it prints no result and exits 1; nothing runs on the CPU.
 """
@@ -176,6 +188,9 @@ HEADLINE_SHAPE = (1024, 1024)
 PARITY_SHAPES = [(1024, 32), (1000, 32), (1024, 100), (1024, 1024),
                  (256, 4096)]
 PARITY_TRIPS = 50
+# At the suite's 19 shapes (suite_parity): enough trips for each mapping's
+# lanes to search, step and push; its 50 trips cost 40-52 s a run.
+SUITE_PARITY_TRIPS = 25
 # The iteration-granular path: full width in float32.  Its kernels are held
 # against their plain versions at these shapes and at (1024, 32).
 NESTED_SHAPES = [(1024, 1024), (256, 4096)]
@@ -191,6 +206,13 @@ EDGE_STOPPING = dict(past=0, f_delta=1e-3, f_delta_violations=2,
                      f_delta_relative=True, gradient_norm=1.0,
                      max_iterations=40)
 NESTED_CUT = 10                 # max_iterations of the cut solve
+# Depth of the nested and batch-minor parity solves: each lane to its own
+# stop or to this many iterations.  Their uncut solves took 141-274
+# iterations (about 90-145 a lane on average) and 45% of the script's
+# time limit.  check_cover wants done lanes, full-history pushes and
+# lanes ending on their own status at every shape: in float64 the first
+# lanes stop near 100 iterations (none by 100 at (1024, 1024) on an H100).
+NESTED_PARITY_CUT = 150
 NESTED_TRACE = 16               # trace capacity on the main path
 # Depth of the spin-padded nested solves, kernel and plain alike, and of
 # the flat solve's timed plain version: 20 iterations, so that the script
@@ -393,13 +415,32 @@ BLOCK_PAIR_SHAPE = (8, 4096)
 BLOCK_DENSE = ("bfgs", "newton", "tr")
 PARALLEL_RANKS = 2
 PARALLEL_RANK_TIMEOUT = 400
-# The side process (``chip_smoke.py --side DIR``), started right after the
-# build and run beside the parity phase on the same card: the plain
-# version's passes over the MGH-376 suite that suite_main holds the
-# kernel's statuses to, part (b)'s block-against-batch checks
-# (block_checks) and part (f)'s world of one (dense_world_of_one).  None
-# launches a kernel that a count reads.
+# The helper processes (``chip_smoke.py --side DIR JOB...``, class
+# Helpers), started right after the build and run beside the parity phase
+# (MAIN_PARITY_JOBS, in the script's own process) on the same card, one
+# list of jobs (run_job) each: the plain versions' solves that phase 4's
+# flat, nested, batch-minor and path B solves, suite_main, solvers_main
+# and constrained_main hold the kernels' to (main_reference,
+# suite_plain_passes, solvers_reference, constrained_reference; the last
+# also the CPU's), part (f)'s world of one (dense_world_of_one) and part
+# (b)'s block-against-batch checks (block_checks).  The lists are
+# balanced by the seconds each job took on an H100 (the record's
+# ``side_jobs_s``) against the parity phase's.  More processes do not
+# pay: the card switches between their contexts, and with four helpers
+# running parity parts every process's synchronising loop ran 1.5-2.3x
+# slower.  No job's launch is one that a count of the main path reads.
+# SIDE_TIMEOUT is counted from their start.
 SIDE_TIMEOUT = 900
+#: The parity phase's parts, each in both precisions (``parity_part``).
+PARITY_PARTS = ("flat", "suite", "nested", "path_a", "made_up", "path_b",
+                "edge", "reach")
+HELPER_JOBS = [
+    ["main_plain", "suite_plain", "dense"],
+    ["blocks", "solvers_plain", "constrained_plain"],
+]
+MAIN_PARITY_JOBS = [f"parity {dname} {part}"
+                    for dname in ("float64", "float32")
+                    for part in PARITY_PARTS]
 # (e) minimize_model_sharded on Lbfgsb(m=5, lower=0.5, upper=4.0) in a world
 #     of one under NCCL, the view-form extended Rosenbrock at n = 1,048,576
 #     float64, cut at MODEL_LBFGSB_CUT iterations, against the unsharded
@@ -421,8 +462,8 @@ MODEL_LBFGSB_EVERY = 512
 MODEL_LBFGSB_CUT = 10
 MODEL_LBFGSB_XTOL = 1e-12
 # (f) minimize_model_sharded on the dense solvers (DENSE_RUNS), float64:
-#     in a world of one under NCCL, run in the side process after its block
-#     checks, against the unsharded card solve through the plain versions
+#     in a world of one under NCCL, run in a helper process (HELPER_JOBS),
+#     against the unsharded card solve through the plain versions
 #     (the sharded solve takes the plain More-Thuente trip, as JAX's sharded
 #     solve takes XLA's lowering; Newton, the trust region and Nelder-Mead
 #     launch nothing either way): status, nfev, iterations and x bit-equal;
@@ -482,6 +523,9 @@ DENSE_LOG_ITERATIONS = 3
 # solve; status, nfev, iterations and x, and no launch on either side.
 SCALING_CUT = 10
 SCALING_TIMEOUT = 600
+# The harness's timed reps a leg (its own default is JAX's 5; the smoke
+# holds only that every rate is finite and positive).
+SCALING_REPEATS = 2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # The calibration kernels (floors_main): launches each kernel is held to its
@@ -489,6 +533,10 @@ PEAK_OPS_PER_S = {"float32": 67e12}  # H100 SXM, outside the tensor cores
 # length), and the launches of each spin-padded timing run.
 FLOOR_CHAIN = {"trip_floor": 900, "launch_floor": 1800}
 FLOOR_TIMED_LAUNCHES = 200
+# The roofline (roofline_main): benchmarks_torch/roofline.py's fixed-budget
+# rows where the flat carry fits the L2 (1024, 32) and where it streams
+# (the headline shape), and its direction-step chain at the headline.
+ROOFLINE_SHAPES = [(1024, 32), HEADLINE_SHAPE]
 FLOOR_TIMED_PLAIN_CALLS = 50
 # Where each float32 kernel's drift from the exact answer is measured
 # (float64 plain version on the same inputs upcast): the flat trip's
@@ -691,7 +739,7 @@ def main() -> int:
                 "stack frame")
 
     mark("build")
-    side = start_side()
+    helpers = Helpers()
 
     # 2. card ---------------------------------------------------------------
     card = card_line()
@@ -708,125 +756,13 @@ def main() -> int:
     # 3. parity, call by call -------------------------------------------------
     max_abs_err = {name: 0.0 for name in REPLACES}
     drift = {}
-
-    def drifts(dname, b, n, *names):
-        """The Drift records of ``names`` measured at (b, n) in float32."""
-        if dname != "float32":
-            return {}
-        return {name: drift.setdefault(name, Drift(b, n))
-                for name in names if DRIFT_AT[name] == (b, n)}
-
-    for dtype in (torch.float64, torch.float32):
-        dname = str(dtype).split(".")[1]
-        for b, n in PARITY_SHAPES:
-            r = parity(fs, obj, start(b, n, dtype), cns, dname,
-                       drifts(dname, b, n, "flat_trip").get("flat_trip"))
-            record[f"parity_{dname}_{b}x{n}"] = r
-            check_parity("flat_trip", dname, b, n, r, max_abs_err)
-            if r["launches"] < r["calls"]:
-                raise AssertionError("flat_trip kernel did not launch")
-        t0 = time.perf_counter()
-        r = suite_parity(mods, dname)
-        r["seconds"] = time.perf_counter() - t0
-        record[f"suite_parity_{dname}"] = r
-        check_parity("flat_trip", dname, "MGH-376", "2-40", r, max_abs_err)
-        log(f"[parity] flat_trip {dname} at the suite's {len(r['shapes'])} "
-            f"shapes {r['shapes']}: worst problem {r['worst_problem']}, "
-            f"{r['seconds']:.1f} s")
-        for b, n in NESTED_PARITY_SHAPES:
-            t0 = time.perf_counter()
-            nested, cover = nested_parity(
-                mods, obj, start(b, n, dtype), dname,
-                drift=drifts(dname, b, n, "lbfgs_prologue", "lbfgs_epilogue"))
-            cover["seconds"] = time.perf_counter() - t0
-            record[f"nested_parity_{dname}_{b}x{n}"] = {**nested,
-                                                        "cover": cover}
-            for name, r in nested.items():
-                check_parity(name, dname, b, n, r, max_abs_err)
-            log(f"[parity] nested {dname} ({b}, {n}) covered: "
-                + json.dumps(cover))
-            check_cover(cover, b, n)
-        for b, n in T_PARITY_SHAPES:
-            t0 = time.perf_counter()
-            nested, cover = nested_parity(
-                mods, obj, start(b, n, dtype), dname, batch_minor=True,
-                drift=drifts(dname, b, n, "lbfgs_prologue_t"))
-            cover["seconds"] = time.perf_counter() - t0
-            record[f"path_a_parity_{dname}_{b}x{n}"] = {**nested,
-                                                        "cover": cover}
-            for name, r in nested.items():
-                check_parity(name, dname, b, n, r, max_abs_err)
-            log(f"[parity] batch-minor {dname} ({b}, {n}) covered: "
-                + json.dumps(cover))
-            check_cover(cover, b, n)
-        made = [(shape, ("lbfgs_prologue", "lbfgs_prologue_t"))
-                for shape in RESET_SHAPES]
-        made += [(shape, ("lbfgs_prologue_t",)) for shape in T_MADE_UP_SHAPES]
-        made += [(shape, ("push_two_loop",)) for shape in PUSH_PARITY_SHAPES]
-        made += [(shape, ("two_loop",)) for shape in TWO_LOOP_PARITY_SHAPES]
-        made += [(shape, ("lbfgs_epilogue",)) for shape in EPILOGUE_SHAPES]
-        for (b, n), names in made:
-            out = made_up_parity(mods, dname, b, n, names)
-            record.setdefault(f"made_up_parity_{dname}_{b}x{n}", {}).update(
-                out)
-            for name, r in out.items():
-                check_parity(name, dname, b, n, r, max_abs_err)
-                if "history_resets" in r:
-                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
-                        f"inputs: {r['history_resets']} invalid-descent "
-                        "history resets")
-                if "mappings" in r:
-                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
-                        f"inputs: bit-equal under {len(r['mappings'])} "
-                        f"mappings {r['mappings']}; bit-equal to the plain "
-                        f"version: {r['equals_plain']}")
-                if "row_modes" in r:
-                    log(f"[parity] two_loop {dname} ({b}, {n}) on made-up "
-                        f"inputs: shipped mapping {r['mapping']}, bit-equal "
-                        f"under the row modes {r['row_modes']} and to "
-                        "push_two_loop with valid off")
-        for b, n in PATH_B_SHAPES:
-            t0 = time.perf_counter()
-            r = path_b_parity(
-                mods, obj, start(b, n, dtype), dname,
-                path_b_stopping(mods, obj, n, dtype,
-                                PATH_B_CUT.get((b, n), 0)),
-                drifts(dname, b, n, "push_two_loop").get("push_two_loop"))
-            r["cover"]["seconds"] = time.perf_counter() - t0
-            record[f"path_b_parity_{dname}_{b}x{n}"] = r
-            check_parity("push_two_loop", dname, b, n, r, max_abs_err)
-            log(f"[parity] path B {dname} ({b}, {n}) covered: "
-                + json.dumps(r["cover"]))
-            if min(r["cover"]["fired"], r["cover"]["full_history_pushes"],
-                   r["cover"]["valid_off_lane_calls"]) <= 0:
-                raise AssertionError(f"path B parity ({b}, {n}): {r}")
-        b, n = EDGE_SHAPE
-        x0 = start(b, n, dtype)
-        x0[:EDGE_LANES] = 1.0
-        x0[EDGE_LANES:2 * EDGE_LANES] *= 1e6
-        x0[2 * EDGE_LANES:3 * EDGE_LANES] *= 1e9
-        nested, cover = nested_parity(
-            mods, obj, x0, dname,
-            cns.default_stopping(dtype).replace(**EDGE_STOPPING))
-        record[f"nested_parity_edge_{dname}"] = {**nested, "cover": cover}
-        for name, r in nested.items():
-            check_parity(name, dname, b, n, r, max_abs_err)
-        log(f"[parity] nested {dname} ({b}, {n}) edge lanes covered: "
-            + json.dumps(cover))
-        check_cover(cover, b, n, edge=True)
-        for key, shape in (("reach_parity", REACH_SHAPE),
-                           ("device_q_parity", DEVICE_Q_SHAPE)):
-            t0 = time.perf_counter()
-            r = reach_parity(mods, obj, start(*shape, dtype), dname)
-            r["seconds"] = time.perf_counter() - t0
-            record[f"{key}_{dname}"] = r
-            rows = {k: m["rows"] for k, m in r["mappings"].items()
-                    if k in ("flat_trip", "lbfgs_prologue")}
-            if (shape == DEVICE_Q_SHAPE) != all(
-                    v == mods.K.ROWS_DEVICE_Q for v in rows.values()):
-                raise AssertionError(f"reach ({shape}) {dname}: rows {rows}")
+    for part in (run_job(mods, job) for job in MAIN_PARITY_JOBS):
+        record.update(part["record"])
+        drift.update(part["drift"])
+        for name, err in part["max_abs_err"].items():
+            max_abs_err[name] = max(max_abs_err[name], err)
     mark("parity")
-    record["drift"] = {name: d.result() for name, d in drift.items()}
+    record["drift"] = drift
     for name, r in record["drift"].items():
         log(f"[drift] {name} float32 {tuple(r['shape'])}: relative "
             f"distance to the float64 answer over {r['lanes']} lane-calls "
@@ -840,6 +776,7 @@ def main() -> int:
     # 4. main path ------------------------------------------------------------
     solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
     stop32 = cns.default_stopping(torch.float32)
+    main_refs = helpers.result("main_plain")
     main_launches = {name: 0 for name in REPLACES}
     shapes = []
     for b, n in MAIN_SHAPES:
@@ -857,12 +794,9 @@ def main() -> int:
                 f"({b}, {n}): {launches} kernel launches for {res.trips} "
                 "trips")
         check_result(res, b, n, M)
-        plain = fs.flat_lbfgs_solve(
-            obj, obj.evaluate(x0), stop32, m=M, max_fev=MAX_FEV,
-            trip=fs.flat_trip_reference,
-        )
+        plain = main_refs[("flat", b, n)]
         agree = float(
-            (res.progress.status == plain.progress.status)
+            (res.progress.status.cpu() == plain.progress.status)
             .float().mean())
         dnfev = abs(float(res.state.nfev.float().mean())
                     - float(plain.state.nfev.float().mean()))
@@ -893,14 +827,11 @@ def main() -> int:
     res = cns.minimize_batched(obj, x0, solver)
     main_launches["flat_trip"] += fs.flat_trip.launches
     check_result(res, 256, 64, M)
-    plain = fs.flat_lbfgs_solve(
-        obj, obj.evaluate(x0), cns.default_stopping(torch.float64), m=M,
-        max_fev=MAX_FEV, trip=fs.flat_trip_reference,
-    )
-    same = {name: bool((getattr(res.progress, name)
+    plain = main_refs[("flat", 256, 64)]
+    same = {name: bool((getattr(res.progress, name).cpu()
                         == getattr(plain.progress, name)).all())
             for name in ("status", "num_iterations")}
-    same["nfev"] = bool((res.state.nfev == plain.state.nfev).all())
+    same["nfev"] = bool((res.state.nfev.cpu() == plain.state.nfev).all())
     log(f"[main] (256, 64) float64: {res.trips} trips, equal on every lane: "
         f"{same}")
     if not all(same.values()) or fs.flat_trip.launches == 0:
@@ -920,7 +851,7 @@ def main() -> int:
     nested_rows = []
     for b, n in NESTED_SHAPES:
         row = nested_main(mods, obj, start(b, n, torch.float32), solver,
-                          stop32)
+                          stop32, ref=main_refs[("nested", False, b, n)])
         for name, count in row["launches"].items():
             main_launches[name] += count
         nested_rows.append(row)
@@ -928,7 +859,8 @@ def main() -> int:
     path_a_rows = []
     for b, n in PATH_A_SHAPES:
         row = nested_main(mods, obj, start(b, n, torch.float32), solver,
-                          stop32, batch_minor=True)
+                          stop32, batch_minor=True,
+                          ref=main_refs[("nested", True, b, n)])
         for name, count in row["launches"].items():
             main_launches[name] += count
         path_a_rows.append(row)
@@ -939,7 +871,8 @@ def main() -> int:
         dtype = getattr(torch, PATH_B_DTYPE[(b, n)])
         row = path_b_main(
             mods, obj, start(b, n, dtype), solver,
-            path_b_stopping(mods, obj, n, dtype, PATH_B_CUT.get((b, n), 0)))
+            path_b_stopping(mods, obj, n, dtype, PATH_B_CUT.get((b, n), 0)),
+            main_refs[("path_b", b, n)])
         for name, count in row["launches"].items():
             main_launches[name] += count
         path_b_rows.append(row)
@@ -950,27 +883,27 @@ def main() -> int:
     for name, count in record["path_c"]["launches"].items():
         main_launches[name] += count
 
-    t0 = time.perf_counter()
-    side = wait_side(side)
-    record["side_wait_s"] = time.perf_counter() - t0
-    log(f"[main] waited {record['side_wait_s']:.1f} s for the side process")
-    record["suite"] = suite_main(mods, side["suite_plain"])
+    record["suite"] = suite_main(mods, helpers.result("suite_plain"))
     for name, count in record["suite"]["launches"].items():
         main_launches[name] += count
 
     t0 = time.perf_counter()
-    record["solvers"] = [solvers_main(mods, obj, run) for run in SOLVER_RUNS]
-    for row in record["solvers"]:
-        for name, count in row["launches"].items():
-            main_launches[name] += count
-    record["solvers_phase_s"] = time.perf_counter() - t0
-    log(f"[main] solvers: {record['solvers_phase_s']:.1f} s")
-    mark("path C, suite, solvers")
-
-    t0 = time.perf_counter()
     rank_procs = start_parallel_ranks()
     try:
-        record["constrained"] = constrained_main(mods, dev)
+        solver_refs = helpers.result("solvers_plain")
+        record["solvers"] = [
+            solvers_main(mods, obj, run, solver_refs.get(i))
+            for i, run in enumerate(SOLVER_RUNS)]
+        for row in record["solvers"]:
+            for name, count in row["launches"].items():
+                main_launches[name] += count
+        record["solvers_phase_s"] = time.perf_counter() - t0
+        log(f"[main] solvers: {record['solvers_phase_s']:.1f} s")
+        mark("path C, suite, solvers")
+
+        t0 = time.perf_counter()
+        record["constrained"] = constrained_main(
+            mods, dev, helpers.result("constrained_plain"))
         for name, count in record["constrained"]["launches"].items():
             main_launches[name] += count
         record["constrained_phase_s"] = time.perf_counter() - t0
@@ -986,6 +919,14 @@ def main() -> int:
         mark("examples")
 
         t0 = time.perf_counter()
+        side = {"blocks": helpers.result("blocks"),
+                "dense": helpers.result("dense")}
+        side["dense_s"] = helpers.seconds["dense"]
+        helpers.finish()
+        record["side_wait_s"] = helpers.waited
+        record["side_jobs_s"] = helpers.seconds
+        log(f"[main] waited {helpers.waited:.1f} s in all for the helper "
+            "processes")
         record["parallel"] = parallel_main(mods, dev, rank_procs,
                                            side["blocks"])
     finally:
@@ -1019,6 +960,12 @@ def main() -> int:
     record["floors_phase_s"] = time.perf_counter() - t0
     log(f"[main] floors: {record['floors_phase_s']:.1f} s")
     mark("floors")
+
+    t0 = time.perf_counter()
+    record["roofline"] = roofline_main(mods, dev, record["floors"]["trip"])
+    record["roofline_phase_s"] = time.perf_counter() - t0
+    log(f"[main] roofline: {record['roofline_phase_s']:.1f} s")
+    mark("roofline")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -1094,6 +1041,7 @@ def main() -> int:
         timed[name] = next(
             r for r in rows if tuple(r["shape"]) == HEADLINE_SHAPE)
     timed.update(record["floors"]["kernels"])
+    record["kernel_attainable"] = attainable(timed, dev)
     kernels = {"kernels": [{
         "name": name,
         "route": "cuda",
@@ -1124,6 +1072,149 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def seeded_start(b, n, dtype, dev):
+    """Starts uniform in [-2, 2] from SEED, (b, n), on ``dev``."""
+    import numpy as np
+    import torch
+
+    x0 = np.random.default_rng(SEED).uniform(-2.0, 2.0, (b, n))
+    return torch.from_numpy(x0).to(device=dev, dtype=dtype)
+
+
+def parity_part(mods, dname, part) -> dict:
+    """One part of the parity phase (PARITY_PARTS) in ``dname``: each
+    kernel held against its plain version call by call, raising where
+    check_parity does.  Returns the record's entries (``record``), each
+    kernel's largest error (``max_abs_err``) and the float32 Drift results
+    measured in the part (``drift``), all host values, as ``run_job``
+    returns them (MAIN_PARITY_JOBS)."""
+    import torch
+
+    cns, fs = mods.cns, mods.fs
+    dtype = getattr(torch, dname)
+    obj = cns.models.pairwise_rosenbrock()
+    record, drift = {}, {}
+    max_abs_err = {name: 0.0 for name in REPLACES}
+
+    def start(b, n):
+        return seeded_start(b, n, dtype, torch.device("cuda"))
+
+    def drifts(b, n, *names):
+        """The Drift records of ``names`` measured at (b, n) in float32."""
+        if dname != "float32":
+            return {}
+        return {name: drift.setdefault(name, Drift(b, n))
+                for name in names if DRIFT_AT[name] == (b, n)}
+
+    if part == "flat":
+        for b, n in PARITY_SHAPES:
+            r = parity(fs, obj, start(b, n), cns, dname,
+                       drifts(b, n, "flat_trip").get("flat_trip"))
+            record[f"parity_{dname}_{b}x{n}"] = r
+            check_parity("flat_trip", dname, b, n, r, max_abs_err)
+            if r["launches"] < r["calls"]:
+                raise AssertionError("flat_trip kernel did not launch")
+    elif part == "suite":
+        t0 = time.perf_counter()
+        r = suite_parity(mods, dname)
+        r["seconds"] = time.perf_counter() - t0
+        record[f"suite_parity_{dname}"] = r
+        check_parity("flat_trip", dname, "MGH-376", "2-40", r, max_abs_err)
+        log(f"[parity] flat_trip {dname} at the suite's {len(r['shapes'])} "
+            f"shapes {r['shapes']}: worst problem {r['worst_problem']}, "
+            f"{r['seconds']:.1f} s")
+    elif part in ("nested", "path_a"):
+        minor = part == "path_a"
+        for b, n in (T_PARITY_SHAPES if minor else NESTED_PARITY_SHAPES):
+            t0 = time.perf_counter()
+            nested, cover = nested_parity(
+                mods, obj, start(b, n), dname, batch_minor=minor,
+                drift=drifts(b, n, *(("lbfgs_prologue_t",) if minor else
+                                     ("lbfgs_prologue", "lbfgs_epilogue"))))
+            cover["seconds"] = time.perf_counter() - t0
+            key = "path_a_parity" if minor else "nested_parity"
+            record[f"{key}_{dname}_{b}x{n}"] = {**nested, "cover": cover}
+            for name, r in nested.items():
+                check_parity(name, dname, b, n, r, max_abs_err)
+            log(f"[parity] {'batch-minor' if minor else 'nested'} {dname} "
+                f"({b}, {n}) covered: " + json.dumps(cover))
+            check_cover(cover, b, n)
+    elif part == "made_up":
+        made = [(shape, ("lbfgs_prologue", "lbfgs_prologue_t"))
+                for shape in RESET_SHAPES]
+        made += [(shape, ("lbfgs_prologue_t",)) for shape in T_MADE_UP_SHAPES]
+        made += [(shape, ("push_two_loop",)) for shape in PUSH_PARITY_SHAPES]
+        made += [(shape, ("two_loop",)) for shape in TWO_LOOP_PARITY_SHAPES]
+        made += [(shape, ("lbfgs_epilogue",)) for shape in EPILOGUE_SHAPES]
+        for (b, n), names in made:
+            out = made_up_parity(mods, dname, b, n, names)
+            record.setdefault(f"made_up_parity_{dname}_{b}x{n}", {}).update(
+                out)
+            for name, r in out.items():
+                check_parity(name, dname, b, n, r, max_abs_err)
+                if "history_resets" in r:
+                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
+                        f"inputs: {r['history_resets']} invalid-descent "
+                        "history resets")
+                if "mappings" in r:
+                    log(f"[parity] {name} {dname} ({b}, {n}) on made-up "
+                        f"inputs: bit-equal under {len(r['mappings'])} "
+                        f"mappings {r['mappings']}; bit-equal to the plain "
+                        f"version: {r['equals_plain']}")
+                if "row_modes" in r:
+                    log(f"[parity] two_loop {dname} ({b}, {n}) on made-up "
+                        f"inputs: shipped mapping {r['mapping']}, bit-equal "
+                        f"under the row modes {r['row_modes']} and to "
+                        "push_two_loop with valid off")
+    elif part == "path_b":
+        for b, n in PATH_B_SHAPES:
+            t0 = time.perf_counter()
+            r = path_b_parity(
+                mods, obj, start(b, n), dname,
+                path_b_stopping(mods, obj, n, dtype,
+                                PATH_B_CUT.get((b, n), 0)),
+                drifts(b, n, "push_two_loop").get("push_two_loop"))
+            r["cover"]["seconds"] = time.perf_counter() - t0
+            record[f"path_b_parity_{dname}_{b}x{n}"] = r
+            check_parity("push_two_loop", dname, b, n, r, max_abs_err)
+            log(f"[parity] path B {dname} ({b}, {n}) covered: "
+                + json.dumps(r["cover"]))
+            if min(r["cover"]["fired"], r["cover"]["full_history_pushes"],
+                   r["cover"]["valid_off_lane_calls"]) <= 0:
+                raise AssertionError(f"path B parity ({b}, {n}): {r}")
+    elif part == "edge":
+        b, n = EDGE_SHAPE
+        x0 = start(b, n)
+        x0[:EDGE_LANES] = 1.0
+        x0[EDGE_LANES:2 * EDGE_LANES] *= 1e6
+        x0[2 * EDGE_LANES:3 * EDGE_LANES] *= 1e9
+        nested, cover = nested_parity(
+            mods, obj, x0, dname,
+            cns.default_stopping(dtype).replace(**EDGE_STOPPING))
+        record[f"nested_parity_edge_{dname}"] = {**nested, "cover": cover}
+        for name, r in nested.items():
+            check_parity(name, dname, b, n, r, max_abs_err)
+        log(f"[parity] nested {dname} ({b}, {n}) edge lanes covered: "
+            + json.dumps(cover))
+        check_cover(cover, b, n, edge=True)
+    elif part == "reach":
+        for key, shape in (("reach_parity", REACH_SHAPE),
+                           ("device_q_parity", DEVICE_Q_SHAPE)):
+            t0 = time.perf_counter()
+            r = reach_parity(mods, obj, start(*shape), dname)
+            r["seconds"] = time.perf_counter() - t0
+            record[f"{key}_{dname}"] = r
+            rows = {k: m["rows"] for k, m in r["mappings"].items()
+                    if k in ("flat_trip", "lbfgs_prologue")}
+            if (shape == DEVICE_Q_SHAPE) != all(
+                    v == mods.K.ROWS_DEVICE_Q for v in rows.values()):
+                raise AssertionError(f"reach ({shape}) {dname}: rows {rows}")
+    else:
+        raise ValueError(f"no parity part {part!r}")
+    return {"record": record, "max_abs_err": max_abs_err,
+            "drift": {name: d.result() for name, d in drift.items()}}
 
 
 def check_parity(name, dname, b, n, r, max_abs_err) -> None:
@@ -1176,61 +1267,100 @@ class Compare:
     integer output differs, a non-finite value differs, or a float output is
     off by more than ``rtol`` (``rtol_of[name]`` where given) times its
     scale: the largest magnitude of the lane's vector, or the scalar itself.
-    The errors reported are the largest over all lanes, bad ones included."""
+    The errors reported are the largest over all lanes, bad ones included.
+    The sums and maxima stay on the device until ``result`` (no read from
+    the card a call); the float fields of one dtype are compared as one
+    concatenated (lanes, columns) block."""
 
     def __init__(self, rtol, rtol_of=None):
         self.rtol, self.rtol_of = rtol, rtol_of or {}
-        self.calls = self.lane_calls = self.bad = 0
-        self.max_abs = self.max_scaled = 0.0
-        self.worst = ""
-        self.bad_by_field = {}
+        self.calls = self.lane_calls = 0
+        # On the device: the bad lane-calls, the largest |kernel - plain|,
+        # and by the tuple of field names, each field's bad lane-calls and
+        # largest scaled error.
+        self._bad = self._max_abs = None
+        self._by_field = {}
 
     def add(self, b, ints, floats) -> None:
         """``ints``: name -> (kernel, plain); ``floats``: name -> (kernel,
         plain, is_vector).  Every tensor has ``b`` leading lanes."""
         import torch
 
-        lane_bad = torch.zeros(b, dtype=torch.bool,
-                               device=next(iter(ints.values()))[0].device)
-
-        def mark(name, bad):
-            nonlocal lane_bad
-            lane_bad = lane_bad | bad
-            count = int(bad.sum())
-            if count:
-                self.bad_by_field[name] = (
-                    self.bad_by_field.get(name, 0) + count)
-
+        names, bad, worst = [], [], []
         for name, (k, p) in ints.items():
-            mark(name, (k.reshape(b, -1) != p.reshape(b, -1)).any(1))
+            names.append(name)
+            bad.append((k.reshape(b, -1) != p.reshape(b, -1)).any(1))
+        groups = {}
         for name, (k, p, vector) in floats.items():
-            k, p = k.reshape(b, -1), p.reshape(b, -1)
-            same_nonfinite = (
-                (k.isnan() == p.isnan()).all(1)
-                & ((k.isinf() & (k == p)) == p.isinf()).all(1))
-            fin = p.isfinite() & k.isfinite()
-            diff = torch.where(fin, (k - p).abs(), torch.zeros_like(p))
-            mag = torch.where(fin, p.abs(), torch.zeros_like(p))
-            scale = mag.amax(1, keepdim=True) if vector else mag
-            scaled = diff / scale.clamp_min(torch.finfo(p.dtype).tiny)
-            scaled = torch.where(diff == 0, torch.zeros_like(diff), scaled)
-            rtol = self.rtol_of.get(name, self.rtol)
-            mark(name, ~same_nonfinite | (scaled > rtol).any(1))
-            self.max_abs = max(self.max_abs, float(diff.max()))
-            sc = float(scaled.max())
-            if sc > self.max_scaled:
-                self.max_scaled, self.worst = sc, name
-        self.bad += int(lane_bad.sum())
+            groups.setdefault(p.dtype, []).append(
+                (name, k.reshape(b, -1), p.reshape(b, -1), vector))
+        max_abs = []
+        for dtype, fields in groups.items():
+            k = torch.cat([f[1] for f in fields], 1)
+            p = torch.cat([f[2] for f in fields], 1)
+            k_nan, p_nan, k_inf, p_inf = k.isnan(), p.isnan(), k.isinf(), \
+                p.isinf()
+            # A column whose non-finite value differs makes its lane bad.
+            nonfinite = (k_nan != p_nan) | ((k_inf & (k == p)) != p_inf)
+            fin = ~(k_nan | k_inf | p_nan | p_inf)
+            zero = torch.zeros((), dtype=dtype, device=p.device)
+            diff = torch.where(fin, (k - p).abs(), zero)
+            mag = torch.where(fin, p.abs(), zero)
+            spans, at = [], 0
+            for name, fk, _, vector in fields:
+                spans.append((name, at, at + fk.shape[1], vector))
+                at += fk.shape[1]
+            scale = torch.cat([
+                mag[:, lo:hi].amax(1, keepdim=True).expand(b, hi - lo)
+                if vector else mag[:, lo:hi]
+                for _, lo, hi, vector in spans], 1)
+            scaled = diff / scale.clamp_min(torch.finfo(dtype).tiny)
+            scaled = torch.where(diff == 0, zero, scaled)
+            for name, lo, hi, _ in spans:
+                rtol = self.rtol_of.get(name, self.rtol)
+                names.append(name)
+                bad.append((nonfinite[:, lo:hi]
+                            | (scaled[:, lo:hi] > rtol)).any(1))
+                worst.append((name, scaled[:, lo:hi].amax()))
+            max_abs.append(diff.amax().double())
+        key = (tuple(names), tuple(w for w, _ in worst))
+        per_field = torch.stack(bad, 1)
+        counts = per_field.sum(0)
+        maxima = (torch.stack([m.double() for _, m in worst]) if worst
+                  else None)
+        lane_bad = per_field.any(1).sum()
+        top = torch.stack(max_abs).amax() if max_abs else None
+        if key in self._by_field:
+            c, m = self._by_field[key]
+            self._by_field[key] = (c + counts, m if m is None
+                                   else torch.maximum(m, maxima))
+        else:
+            self._by_field[key] = (counts, maxima)
+        self._bad = lane_bad if self._bad is None else self._bad + lane_bad
+        if top is not None:
+            self._max_abs = (top if self._max_abs is None
+                             else torch.maximum(self._max_abs, top))
         self.calls += 1
         self.lane_calls += b
 
     def result(self, launches) -> dict:
+        by_field, max_scaled, worst = {}, 0.0, ""
+        for (names, floats), (counts, maxima) in self._by_field.items():
+            for name, count in zip(names, counts.tolist()):
+                if count:
+                    by_field[name] = by_field.get(name, 0) + count
+            if maxima is not None:
+                for name, m in zip(floats, maxima.tolist()):
+                    if m > max_scaled:
+                        max_scaled, worst = m, name
         return {
             "calls": self.calls, "lane_calls": self.lane_calls,
-            "mismatched_lane_calls": self.bad,
-            "mismatched_by_field": self.bad_by_field,
-            "max_abs_err": self.max_abs,
-            "max_scaled_err": self.max_scaled, "worst_field": self.worst,
+            "mismatched_lane_calls": (0 if self._bad is None
+                                      else int(self._bad)),
+            "mismatched_by_field": by_field,
+            "max_abs_err": (0.0 if self._max_abs is None
+                            else float(self._max_abs)),
+            "max_scaled_err": max_scaled, "worst_field": worst,
             "rtol": self.rtol, "launches": launches,
         }
 
@@ -1282,10 +1412,11 @@ def upcast(rec):
                         for k, v in vars(rec).items()})
 
 
-def parity(fs, obj, x0, cns, dname, drift=None, stop=None) -> dict:
+def parity(fs, obj, x0, cns, dname, drift=None, stop=None,
+           trips=PARITY_TRIPS) -> dict:
     """Feed the identical state to the kernel and the plain version at every
-    trip of a plain-version flat solve (under ``stop``, by default the
-    default stopping) and compare every output.  With ``drift`` (a
+    trip (the first ``trips``) of a plain-version flat solve (under
+    ``stop``, by default the default stopping) and compare every output.  With ``drift`` (a
     :class:`Drift`) the trip also runs through the plain version on the
     inputs upcast to float64, and the lanes at an iteration boundary give the
     direction's distance to it."""
@@ -1296,7 +1427,7 @@ def parity(fs, obj, x0, cns, dname, drift=None, stop=None) -> dict:
     cmp = Compare(RTOL[dname])
     launches0 = fs.flat_trip.launches
     b = x0.shape[0]
-    for _ in range(PARITY_TRIPS):
+    for _ in range(trips):
         if not bool((st.si[:, fs._I_STATUS] == 0).any()):
             break
         f_t, g_t = obj.batched_value_and_grad(x_trial)
@@ -1327,9 +1458,9 @@ def suite_parity(mods, dname) -> dict:
     (B, n) (B = 6-7, n = 2-40: one lane a block, a warp per lane with idle
     threads below n = 32 and a ragged second element above) the first
     problem of that shape from its starts, under the reliability stopping,
-    PARITY_TRIPS trips each (all 58 problems took 117 s on an H100, this
-    about a third of it).  The lane-calls of all are summed into one
-    result, held to check_parity's tolerances."""
+    SUITE_PARITY_TRIPS trips each (all 58 problems at 50 trips took 117 s
+    on an H100).  The lane-calls of all are summed into one result, held
+    to check_parity's tolerances."""
     import torch
 
     import suite_bench
@@ -1347,7 +1478,8 @@ def suite_parity(mods, dname) -> dict:
             continue
         x0 = torch.from_numpy(starts).to(device=torch.device("cuda"),
                                          dtype=dtype)
-        r = parity(fs, problem.objective, x0, cns, dname, stop=stop)
+        r = parity(fs, problem.objective, x0, cns, dname, stop=stop,
+                   trips=SUITE_PARITY_TRIPS)
         if r["launches"] < r["calls"]:
             raise AssertionError(f"flat_trip did not launch on {problem.name}")
         shapes.add(starts.shape)
@@ -1375,7 +1507,8 @@ def _clone_record(rec):
 def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False,
                   drift=None):
     """During a plain-version solve of the iteration-granular path, run to
-    its end under ``stop`` (the default criteria if None), every call's
+    its end under ``stop`` (if None, the default criteria cut at
+    NESTED_PARITY_CUT iterations), every call's
     inputs go through the kernel and through the plain version, and every
     output is compared.  ``batch_minor`` takes the loop on the batch-minor
     history (``lbfgs_prologue_t``).  ``drift`` maps a kernel's name to a
@@ -1518,7 +1651,8 @@ def nested_parity(mods, obj, x0, dname, stop=None, batch_minor=False,
             pname: prologue, "mt_trip": trip, "lbfgs_epilogue": epilogue}):
         res = cns.minimize_batched(
             obj, x0, cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV),
-            stop or cns.default_stopping(x0.dtype), trace=1)
+            stop or cns.default_stopping(x0.dtype).replace(
+                max_iterations=NESTED_PARITY_CUT), trace=1)
     cover["iterations"] = int(res.progress.num_iterations.max())
     cover["trips"] = res.trips
     return {name: cmps[name].result(fn.launches - launches0[name])
@@ -1687,7 +1821,8 @@ def check_cover(cover, b, n, edge=False) -> None:
             f"compared calls: {cover['ended_on_status']}")
 
 
-def nested_main(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
+def nested_main(mods, obj, x0, solver, stop, batch_minor=False,
+                ref=None) -> dict:
     """The iteration-granular path through its entry points: a traced solve
     cut by ``max_iterations``, ``resume`` to the end, and a warm start with
     ``internals=`` and ``trace=``.  The launch counts must match the
@@ -1696,23 +1831,37 @@ def nested_main(mods, obj, x0, solver, stop, batch_minor=False) -> dict:
     held against the same solves through
     the plain versions on the card, and against the flat path.
     ``batch_minor`` is path A: the same on the batch-minor history, with
-    the statuses also held against the batch-major loop's."""
+    the statuses also held against the batch-major loop's.  ``ref``: the
+    plain versions' solve (:func:`nested_plain`, from a helper process)."""
     with mods.layout(batch_minor):
-        return _nested_main(mods, obj, x0, solver, stop, batch_minor)
+        return _nested_main(mods, obj, x0, solver, stop, batch_minor, ref)
 
 
-def _nested_main(mods, obj, x0, solver, stop, batch_minor) -> dict:
+def nested_run(cns, obj, x0, solver, stop):
+    """The cut traced solve of :func:`nested_main` and its resume to the
+    end."""
+    cut = cns.minimize_batched(obj, x0, solver,
+                               stop.replace(max_iterations=NESTED_CUT),
+                               trace=NESTED_TRACE)
+    return cut, cns.resume(obj, cut, solver, stop, trace=NESTED_TRACE)
+
+
+def nested_plain(mods, obj, x0, solver, stop, batch_minor):
+    """:func:`nested_run` through the plain versions on ``batch_minor``'s
+    history layout: the resumed solve, as a :func:`result_view`."""
+    with mods.layout(batch_minor), mods.swapped(mods.nested(batch_minor)[1]):
+        return result_view(nested_run(mods.cns, obj, x0, solver, stop)[1])
+
+
+def _nested_main(mods, obj, x0, solver, stop, batch_minor, ref) -> dict:
     import torch
 
     cns = mods.cns
     b, n = x0.shape
-    kernels, plain_fns, pname = mods.nested(batch_minor)
-    cut_stop = stop.replace(max_iterations=NESTED_CUT)
+    kernels, _, pname = mods.nested(batch_minor)
 
     def run():
-        cut = cns.minimize_batched(obj, x0, solver, cut_stop,
-                                   trace=NESTED_TRACE)
-        return cut, cns.resume(obj, cut, solver, stop, trace=NESTED_TRACE)
+        return nested_run(cns, obj, x0, solver, stop)
 
     torch.cuda.synchronize()
     for fn in mods.wrappers.values():
@@ -1764,16 +1913,15 @@ def _nested_main(mods, obj, x0, solver, stop, batch_minor) -> dict:
                  & ((full.trace.value == traced)
                     | (full.trace.value.isnan() & traced.isnan())).all(1))
     resumed_equal = float(same_lane.float().mean())
-    with mods.swapped(plain_fns):
-        _, plain = run()
+    plain = ref
     flat = cns.minimize_batched(obj, x0, solver, stop)
     if batch_minor:
         with mods.layout(False):
             _, major = run()
 
     def against(other):
-        agree = float((res.progress.status == other.progress.status)
-                      .float().mean())
+        agree = float((res.progress.status.cpu()
+                       == other.progress.status.cpu()).float().mean())
         dnfev = abs(float(res.state.nfev.float().mean())
                     - float(other.state.nfev.float().mean()))
         return agree, dnfev
@@ -2111,7 +2259,7 @@ def timing(fs, obj, x0, stop) -> dict:
     from benchmarks_torch.roofline import trip_work
 
     work = trip_work(obj, x0, stop, m=M, max_fev=MAX_FEV)
-    del work["trips"]  # the row has the solve's own
+    del work["trips"], work["batched_iterations"]  # the row has its own
 
     def mean(which, device_time, key):
         rs = runs[(which, device_time)]
@@ -2608,13 +2756,14 @@ def path_b_parity(mods, obj, x0, dname, stop, drift=None) -> dict:
     return r
 
 
-def path_b_main(mods, obj, x0, solver, stop) -> dict:
+def path_b_main(mods, obj, x0, solver, stop, ref) -> dict:
     """Path B through its entry points: ``minimize_batched`` of a
     second-mode objective with the Hessian-condition criterion on (traced,
     and fresh), and ``minimize`` for a batch of one.  The criterion must
     fire on some lanes and not on others; ``push_two_loop`` must launch once
     per iteration and ``mt_trip`` once per search trip, and no other kernel;
-    statuses are held against the same solve through the plain versions."""
+    statuses are held against the same solve through the plain versions
+    (``ref``, a :func:`result_view` made in a helper process)."""
     import torch
 
     cns = mods.cns
@@ -2653,9 +2802,8 @@ def path_b_main(mods, obj, x0, solver, stop) -> dict:
     check_result(res, b, n, M)
     if one.state.x.shape != (n,) or int(one.progress.status) == 0:
         raise AssertionError("path B: minimize did not finish")
-    with mods.swapped(mods.plain_b):
-        plain = cns.minimize_batched(obj, x0, solver, stop)
-    agree = float((res.progress.status == plain.progress.status)
+    plain = ref
+    agree = float((res.progress.status.cpu() == plain.progress.status)
                   .float().mean())
     dnfev = abs(float(res.state.nfev.float().mean())
                 - float(plain.state.nfev.float().mean()))
@@ -2760,7 +2908,7 @@ def suite_plain(mods, dname, indices=None) -> dict:
 
 
 def suite_plain_passes(mods) -> dict:
-    """The side process's share of ``suite_main``: :func:`suite_plain` in
+    """A helper process's share of ``suite_main``: :func:`suite_plain` in
     float32 over every problem, then in float64 over the problems with a
     lane that failed in float32 (the single solve's rule, on the plain
     version's lanes; ``suite_main`` solves any other problem the kernel's
@@ -2776,7 +2924,7 @@ def suite_main(mods, plain) -> dict:
     failed instance again in float64), launch counts set to 0 just before
     and read just after: only ``flat_trip`` may launch, once per trip.  Then
     each pass's problems through the plain version on the card (``plain``:
-    :func:`suite_plain_passes`, from the side process): the kernel's
+    :func:`suite_plain_passes`, from a helper process): the kernel's
     statuses must equal the plain version's on every float64 lane and on
     at least 99% of the float32 lanes, and the single solve must converge
     on at least SUITE_CONVERGED_MIN of the 376."""
@@ -2849,38 +2997,21 @@ def suite_main(mods, plain) -> dict:
         f"problems again in float64), launches {launches}, wall "
         f"{wall:.1f} s; the phase with the plain versions "
         f"{row['phase_wall_s']:.1f} s (float64 plain solves of "
-        f"{len(missing)} problems here, the rest in the side process)")
+        f"{len(missing)} problems here, the rest in a helper process)")
     if converged < SUITE_CONVERGED_MIN * total:
         raise AssertionError(f"suite: converged {converged}/{total}")
     return row
 
 
-def solvers_main(mods, obj, run) -> dict:
-    """One solver or search of SOLVER_RUNS on the pairwise extended
-    Rosenbrock from starts uniform in [-2, 2] (seed 0), through
-    ``minimize_batched``:
-
-    * the float32 solve (cut where the run says), launch counts and the
-      device-to-host reads (``any_lane.reads``) set to 0 just before and
-      read just after: a path with kernels launches ``mt_trip`` once per
-      search trip (gradient descent, BFGS) or ``lbfgs_prologue`` and
-      ``lbfgs_epilogue`` once per iteration and never ``flat_trip``
-      (L-BFGS with Hager-Zhang or Armijo), and nothing else; a path with
-      none launches nothing.  Finite values, every lane stopped;
-    * a path with kernels: the same float32 solve through the plain
-      versions on the card (statuses equal on at least 99% of lanes), and
-      a float64 solve cut at SOLVER_SHORT_BUDGET iterations with kernels
-      and with plain versions: status, nfev and num_iterations equal on
-      every lane, iterates within SOLVER_PLAIN_XTOL;
-    * a path without: the float64 solve cut at SOLVER_SHORT_BUDGET on the
-      card against the same solve on the CPU: status and nfev equal on
-      every lane, iterates within SOLVER_CPU_XTOL."""
+def solvers_solve(mods, obj, run):
+    """``solve(dtype, budget=0, device="cuda")``: ``run``'s solve of
+    SOLVER_RUNS on the pairwise extended Rosenbrock from starts uniform in
+    [-2, 2] (seed 0) through ``minimize_batched``, cut at ``budget``
+    iterations where it is not 0."""
     import numpy as np
     import torch
 
-    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
-
-    cns, fs = mods.cns, mods.fs
+    cns = mods.cns
     label, cls, kw, (b, n), mode, conservative, cut, names = run
     solver = getattr(cns, cls)(**kw)
     tobj = obj if mode == "second" else obj.with_mode(mode)
@@ -2896,6 +3027,53 @@ def solvers_main(mods, obj, run) -> dict:
         return cns.minimize_batched(tobj, x0, solver,
                                     stopping(dtype, budget), device=device)
 
+    return solve
+
+
+def solvers_reference(mods, obj, run) -> dict:
+    """The plain versions' share of :func:`solvers_main` for a run with
+    kernels, made in a helper process: the float32 solve (cut where the
+    run says) through the plain versions on the card, its statuses and its
+    wall, and the float64 solve cut at SOLVER_SHORT_BUDGET through them
+    (``short``: :func:`host_summary`)."""
+    import torch
+
+    solve = solvers_solve(mods, obj, run)
+    with mods.swapped({k: mods.plain_all[k] for k in run[-1]}):
+        pres, wall = timed_call(lambda: solve(torch.float32, run[6]))
+        short = solve(torch.float64, SOLVER_SHORT_BUDGET)
+    return {"status": pres.progress.status.cpu(), "wall_s": wall,
+            "short": host_summary(short)}
+
+
+def solvers_main(mods, obj, run, ref=None) -> dict:
+    """One solver or search of SOLVER_RUNS on the pairwise extended
+    Rosenbrock from starts uniform in [-2, 2] (seed 0), through
+    ``minimize_batched``:
+
+    * the float32 solve (cut where the run says), launch counts and the
+      device-to-host reads (``any_lane.reads``) set to 0 just before and
+      read just after: a path with kernels launches ``mt_trip`` once per
+      search trip (gradient descent, BFGS) or ``lbfgs_prologue`` and
+      ``lbfgs_epilogue`` once per iteration and never ``flat_trip``
+      (L-BFGS with Hager-Zhang or Armijo), and nothing else; a path with
+      none launches nothing.  Finite values, every lane stopped;
+    * a path with kernels: the same float32 solve through the plain
+      versions on the card (statuses equal on at least 99% of lanes), and
+      a float64 solve cut at SOLVER_SHORT_BUDGET iterations with kernels
+      and with plain versions: status, nfev and num_iterations equal on
+      every lane, iterates within SOLVER_PLAIN_XTOL (the plain solves:
+      ``ref``, :func:`solvers_reference`, from a helper process);
+    * a path without: the float64 solve cut at SOLVER_SHORT_BUDGET on the
+      card against the same solve on the CPU: status and nfev equal on
+      every lane, iterates within SOLVER_CPU_XTOL."""
+    import torch
+
+    from cppnumericalsolvers_tpu_torch.core.tree import any_lane
+
+    cns, fs = mods.cns, mods.fs
+    label, cls, kw, (b, n), mode, conservative, cut, names = run
+    solve = solvers_solve(mods, obj, run)
     counted = {"flat_trip": fs.flat_trip, **mods.wrappers}
     torch.cuda.synchronize()
     for fn in counted.values():
@@ -2931,28 +3109,20 @@ def solvers_main(mods, obj, run) -> dict:
                                    minlength=7).tolist(),
     }
 
-    def short(a, bres):
-        same = {f: bool((getattr(a.progress, f).cpu()
-                         == getattr(bres.progress, f).cpu()).all())
-                for f in ("status", "num_iterations")}
-        same["nfev"] = bool((a.state.nfev.cpu() == bres.state.nfev.cpu())
-                            .all())
-        dx = float((a.state.x.cpu() - bres.state.x.cpu()).abs().max())
+    def short(a, want):
+        got = host_summary(a)
+        same = {f: bool((got[k] == want[k]).all()) for f, k in (
+            ("status", "status"), ("num_iterations", "iterations"),
+            ("nfev", "nfev"))}
+        dx = float((got["x"] - want["x"]).abs().max())
         return same, dx
 
     if names:
-        plain = {k: mods.plain_all[k] for k in names}
-        t1 = time.perf_counter()
-        with mods.swapped(plain):
-            pres = solve(torch.float32, cut)
-        torch.cuda.synchronize()
-        row["plain_wall_s"] = time.perf_counter() - t1
+        row["plain_wall_s"] = ref["wall_s"]
         row["status_agreement"] = float(
-            (res.progress.status == pres.progress.status).float().mean())
+            (res.progress.status.cpu() == ref["status"]).float().mean())
         kres = solve(torch.float64, SOLVER_SHORT_BUDGET)
-        with mods.swapped(plain):
-            pres = solve(torch.float64, SOLVER_SHORT_BUDGET)
-        same, dx = short(kres, pres)
+        same, dx = short(kres, ref["short"])
         row["float64_short"] = {"against": "plain versions on the card",
                                 "equal": same, "max_abs_x_diff": dx}
         ok = (row["status_agreement"] >= 0.99 and all(same.values())
@@ -2960,7 +3130,7 @@ def solvers_main(mods, obj, run) -> dict:
     else:
         cres = solve(torch.float64, SOLVER_SHORT_BUDGET)
         hres = solve(torch.float64, SOLVER_SHORT_BUDGET, device="cpu")
-        same, dx = short(cres, hres)
+        same, dx = short(cres, host_summary(hres))
         row["float64_short"] = {"against": "the same solve on the CPU",
                                 "equal": same, "max_abs_x_diff": dx}
         ok = all(same.values()) and dx <= SOLVER_CPU_XTOL
@@ -3062,7 +3232,175 @@ def _short_ok(same, tol, nfev_lanes=0) -> bool:
             and max(same["max_abs_diff"].values()) <= tol)
 
 
-def constrained_main(mods, dev) -> dict:
+def lbfgsb_solve(cns, obj, label, b, n, dev):
+    """``solve(dtype, budget=0, device=dev)``: the L-BFGS-B run ``label`` of
+    LBFGSB_RUNS at (b, n) (see :func:`constrained_main`), cut at
+    ``budget`` iterations where it is not 0."""
+    import numpy as np
+    import torch
+
+    solver = cns.Lbfgsb(m=5, lower=LBFGSB_BOX[0], upper=LBFGSB_BOX[1])
+    x_np = np.random.default_rng(SEED).uniform(-2.0, 2.0, (b, n))
+
+    def solve(dtype, budget=0, device=dev):
+        x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
+        stop = solver.default_stopping(dtype)
+        if budget:
+            stop = stop.replace(max_iterations=budget)
+        internals = None
+        if label == "lane_boxes":
+            half = torch.arange(b, device=device)[:, None] < b // 2
+            lo = torch.where(half, LANE_BOXES[0][0], LANE_BOXES[1][0])
+            up = torch.where(half, LANE_BOXES[0][1], LANE_BOXES[1][1])
+            internals = solver.make_internals(
+                n, dtype, lo.expand(b, n), up.expand(b, n), device=device)
+        return cns.minimize_batched(obj, x0, solver, stop,
+                                    internals=internals, device=device)
+
+    return solve
+
+
+def al_runs(cns):
+    """The augmented-Lagrangian runs of :func:`constrained_main`: (label,
+    problem, inner solver, starts, outer cap, inner cap, dtype, optimum)."""
+    import numpy as np
+    import torch
+
+    def starts(b, n):
+        return np.random.default_rng(SEED).uniform(-2.0, 2.0, (b, n))
+
+    b, n = AL_LEG
+    outer, inner_cap = AL_LEG_BUDGET
+    yield ("bench_leg_lbfgs", al_leg_problem(cns, n), cns.Lbfgs(m=M),
+           starts(b, n), outer, inner_cap, torch.float32, None)
+    from examples_torch import constrained
+
+    for name, (problem, optimum) in constrained.problems().items():
+        yield (f"example_{name}_lbfgsb", problem,
+               cns.Lbfgsb(m=5, lower=AL_EXAMPLE_BOX[0],
+                          upper=AL_EXAMPLE_BOX[1]),
+               starts(AL_EXAMPLE_STARTS, 2), 0, 0, torch.float64, optimum)
+
+
+def al_short(cap, icap):
+    """The float64 short budget (outer, inner) of an AL run."""
+    return (CONSTRAINED_SHORT_AL if cap == 0
+            else (min(cap, CONSTRAINED_SHORT_AL[0]),
+                  min(icap, CONSTRAINED_SHORT_AL[1])))
+
+
+def al_solve(cns, run, dev):
+    """``solve(dtype, cap, icap, device=dev)``: one run of :func:`al_runs`,
+    its outer and inner iterations cut at ``cap`` and ``icap`` where they
+    are not 0 (by default the run's own)."""
+    import torch
+
+    _, problem, inner, x_np, cap0, icap0, _, _ = run
+    al = cns.AugmentedLagrangian(inner_solver=inner)
+
+    def solve(dtype, cap=cap0, icap=icap0, device=dev):
+        x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
+        stop = cns.default_stopping(dtype)
+        istop = inner.default_stopping(dtype)
+        if cap:
+            stop = stop.replace(max_iterations=cap)
+        if icap:
+            istop = istop.replace(max_iterations=icap)
+        return al.minimize_batched(problem, x0, stopping=stop,
+                                   inner_stopping=istop, device=device)
+
+    return solve
+
+
+def result_view(res):
+    """What phase 4 reads of a plain or CPU result, on the host:
+    ``progress.status``, ``progress.num_iterations``, ``state.x``,
+    ``state.nfev``, ``trips`` and, for an AL result, ``state.penalty``,
+    ``state.max_violation`` and ``state.multipliers``."""
+    from types import SimpleNamespace as ns
+
+    st = res.state
+    state = ns(x=st.x.cpu(), nfev=st.nfev.cpu())
+    if hasattr(st, "multipliers"):
+        state.penalty = st.penalty.cpu()
+        state.max_violation = st.max_violation.cpu()
+        state.multipliers = ns(equality=st.multipliers.equality.cpu(),
+                               inequality=st.multipliers.inequality.cpu())
+    return ns(progress=ns(status=res.progress.status.cpu(),
+                          num_iterations=res.progress.num_iterations.cpu()),
+              state=state, trips=getattr(res, "trips", None))
+
+
+def main_reference(mods) -> dict:
+    """The plain versions' solves that phase 4's flat, nested, batch-minor
+    and path B solves are held to, made in a helper process, each a
+    :func:`result_view`: by ("flat", b, n) (float32 at MAIN_SHAPES,
+    float64 at (256, 64)), ("nested", batch_minor, b, n) and ("path_b", b,
+    n)."""
+    import torch
+
+    cns, fs = mods.cns, mods.fs
+    obj = cns.models.pairwise_rosenbrock()
+    solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
+    dev = torch.device("cuda")
+    out = {}
+    for (b, n), dtype in ([(shape, torch.float32) for shape in MAIN_SHAPES]
+                          + [((256, 64), torch.float64)]):
+        x0 = seeded_start(b, n, dtype, dev)
+        out[("flat", b, n)] = result_view(fs.flat_lbfgs_solve(
+            obj, obj.evaluate(x0), cns.default_stopping(dtype), m=M,
+            max_fev=MAX_FEV, trip=fs.flat_trip_reference))
+    stop32 = cns.default_stopping(torch.float32)
+    for minor, shapes in ((False, NESTED_SHAPES), (True, PATH_A_SHAPES)):
+        for b, n in shapes:
+            out[("nested", minor, b, n)] = nested_plain(
+                mods, obj, seeded_start(b, n, torch.float32, dev), solver,
+                stop32, minor)
+    for b, n in PATH_B_SHAPES:
+        dtype = getattr(torch, PATH_B_DTYPE[(b, n)])
+        stop = path_b_stopping(mods, obj, n, dtype, PATH_B_CUT.get((b, n), 0))
+        with mods.swapped(mods.plain_b):
+            out[("path_b", b, n)] = result_view(cns.minimize_batched(
+                obj, seeded_start(b, n, dtype, dev), solver, stop))
+    return out
+
+
+def constrained_reference(mods, dev) -> dict:
+    """The plain versions' and the CPU's share of :func:`constrained_main`,
+    made in a helper process: for each L-BFGS-B and AL run, the solve
+    through the plain versions on ``dev`` (its figures from
+    :func:`_counted_run`), the float64 short budget through them and on
+    the CPU, each a :func:`result_view`, by ("lbfgsb" | "al", index)."""
+    import torch
+
+    cns = mods.cns
+    obj = cns.models.pairwise_rosenbrock()
+    out = {}
+    for i, (label, (b, n)) in enumerate(LBFGSB_RUNS):
+        solve = lbfgsb_solve(cns, obj, label, b, n, dev)
+        pres, pst = _counted_run(mods, lambda: solve(torch.float32),
+                                 plain=True)
+        pshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, CONSTRAINED_SHORT_LBFGSB),
+            plain=True)
+        cshort = solve(torch.float64, CONSTRAINED_SHORT_LBFGSB, "cpu")
+        out[("lbfgsb", i)] = {"plain": result_view(pres), "plain_st": pst,
+                              "plain_short": result_view(pshort),
+                              "cpu_short": result_view(cshort)}
+    for i, run in enumerate(al_runs(cns)):
+        solve = al_solve(cns, run, dev)
+        short = al_short(run[4], run[5])
+        pres, pst = _counted_run(mods, lambda: solve(run[6]), plain=True)
+        pshort, _ = _counted_run(
+            mods, lambda: solve(torch.float64, *short), plain=True)
+        cshort = solve(torch.float64, *short, device="cpu")
+        out[("al", i)] = {"plain": result_view(pres), "plain_st": pst,
+                          "plain_short": result_view(pshort),
+                          "cpu_short": result_view(cshort)}
+    return out
+
+
+def constrained_main(mods, dev, ref) -> dict:
     """L-BFGS-B, the augmented-Lagrangian layer and the finite-difference
     checkers on the card (the ``constrained_main`` phase):
 
@@ -3093,7 +3431,8 @@ def constrained_main(mods, dev) -> dict:
     the ``Lbfgs``-inner AL solve and never otherwise, ``flat_trip`` never;
     (4) the checkers: the CPU's booleans, and values within CHECKER_RTOL of
     the largest entry.  Times, iterations, trips, reads and Cauchy passes
-    go to the record."""
+    go to the record.  The plain versions' solves and the CPU's come from
+    ``ref`` (:func:`constrained_reference`, made in a helper process)."""
     import numpy as np
     import torch
 
@@ -3118,27 +3457,9 @@ def constrained_main(mods, dev) -> dict:
                 f"{want}")
 
     # L-BFGS-B --------------------------------------------------------------
-    for label, (b, n) in LBFGSB_RUNS:
-        solver = cns.Lbfgsb(m=5, lower=LBFGSB_BOX[0], upper=LBFGSB_BOX[1])
-        x_np = starts(b, n)
-
-        def solve(dtype, budget=0, device=dev, solver=solver, x_np=x_np,
-                  label=label, b=b, n=n):
-            x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
-            stop = solver.default_stopping(dtype)
-            if budget:
-                stop = stop.replace(max_iterations=budget)
-            internals = None
-            if label == "lane_boxes":
-                half = torch.arange(b, device=device)[:, None] < b // 2
-                lo = torch.where(half, LANE_BOXES[0][0], LANE_BOXES[1][0])
-                up = torch.where(half, LANE_BOXES[0][1], LANE_BOXES[1][1])
-                internals = solver.make_internals(
-                    n, dtype, lo.expand(b, n), up.expand(b, n),
-                    device=device)
-            return cns.minimize_batched(obj, x0, solver, stop,
-                                        internals=internals, device=device)
-
+    for i, (label, (b, n)) in enumerate(LBFGSB_RUNS):
+        solve = lbfgsb_solve(cns, obj, label, b, n, dev)
+        got = ref[("lbfgsb", i)]
         res, st = _counted_run(mods, lambda: solve(torch.float32))
         add_launches(st)
         iters = int(res.progress.num_iterations.max())
@@ -3157,16 +3478,12 @@ def constrained_main(mods, dev) -> dict:
         up_box = res.internals.upper
         if bool(((res.state.x < lo_box) | (res.state.x > up_box)).any()):
             raise AssertionError(f"lbfgsb {label}: x left its box")
-        pres, pst = _counted_run(mods, lambda: solve(torch.float32),
-                                 plain=True)
-        agree = float((res.progress.status == pres.progress.status)
+        pres, pst = got["plain"], got["plain_st"]
+        agree = float((res.progress.status.cpu() == pres.progress.status)
                       .float().mean())
         kshort, _ = _counted_run(
             mods, lambda: solve(torch.float64, CONSTRAINED_SHORT_LBFGSB))
-        pshort, _ = _counted_run(
-            mods, lambda: solve(torch.float64, CONSTRAINED_SHORT_LBFGSB),
-            plain=True)
-        cshort = solve(torch.float64, CONSTRAINED_SHORT_LBFGSB, "cpu")
+        pshort, cshort = got["plain_short"], got["cpu_short"]
         row = {
             "solve": f"Lbfgsb(m=5) {label}", "shape": [b, n],
             "dtype": "float32", "wall_s": st["wall_s"],
@@ -3206,38 +3523,11 @@ def constrained_main(mods, dev) -> dict:
             raise AssertionError(f"lbfgsb {label} ({b}, {n}): {row}")
 
     # Augmented Lagrangian -----------------------------------------------------
-    b, n = AL_LEG
-    leg = al_leg_problem(cns, n)
-    outer, inner_cap = AL_LEG_BUDGET
-
-    def al_runs():
-        yield ("bench_leg_lbfgs", leg, cns.Lbfgs(m=M), starts(b, n), outer,
-               inner_cap, torch.float32, None)
-        from examples_torch import constrained
-
-        for name, (problem, optimum) in constrained.problems().items():
-            yield (f"example_{name}_lbfgsb", problem,
-                   cns.Lbfgsb(m=5, lower=AL_EXAMPLE_BOX[0],
-                              upper=AL_EXAMPLE_BOX[1]),
-                   starts(AL_EXAMPLE_STARTS, 2), 0, 0, torch.float64,
-                   optimum)
-
-    for label, problem, inner, x_np, cap, icap, dtype, optimum in al_runs():
-        al = cns.AugmentedLagrangian(inner_solver=inner)
+    for i, run in enumerate(al_runs(cns)):
+        label, problem, inner, x_np, cap, icap, dtype, optimum = run
         lbfgs_inner = isinstance(inner, cns.Lbfgs)
-
-        def solve(dtype, cap=cap, icap=icap, device=dev, al=al,
-                  problem=problem, x_np=x_np, inner=inner):
-            x0 = torch.from_numpy(x_np).to(device=device, dtype=dtype)
-            stop = cns.default_stopping(dtype)
-            istop = inner.default_stopping(dtype)
-            if cap:
-                stop = stop.replace(max_iterations=cap)
-            if icap:
-                istop = istop.replace(max_iterations=icap)
-            return al.minimize_batched(problem, x0, stopping=stop,
-                                       inner_stopping=istop, device=device)
-
+        solve = al_solve(cns, run, dev)
+        got = ref[("al", i)]
         res, st = _counted_run(mods, lambda: solve(dtype))
         add_launches(st)
         outer_its = int(res.progress.num_iterations.max())
@@ -3254,19 +3544,15 @@ def constrained_main(mods, dev) -> dict:
             raise AssertionError(f"al {label}: x not finite")
         if bool((res.progress.status == 0).any()):
             raise AssertionError(f"al {label}: a lane did not stop")
-        pres, pst = _counted_run(mods, lambda: solve(dtype), plain=True)
-        agree = float((res.progress.status == pres.progress.status)
+        pres, pst = got["plain"], got["plain_st"]
+        agree = float((res.progress.status.cpu() == pres.progress.status)
                       .float().mean())
-        plain_dx = float((res.state.x - pres.state.x).abs().max())
+        plain_dx = float((res.state.x.cpu() - pres.state.x).abs().max())
         plain_feasible = float(pres.state.max_violation.max())
-        short = (CONSTRAINED_SHORT_AL if cap == 0
-                 else (min(cap, CONSTRAINED_SHORT_AL[0]),
-                       min(icap, CONSTRAINED_SHORT_AL[1])))
+        short = al_short(cap, icap)
         kshort, _ = _counted_run(
             mods, lambda: solve(torch.float64, *short))
-        pshort, _ = _counted_run(
-            mods, lambda: solve(torch.float64, *short), plain=True)
-        cshort = solve(torch.float64, *short, device="cpu")
+        pshort, cshort = got["plain_short"], got["cpu_short"]
         row = {
             "solve": f"AugmentedLagrangian({type(inner).__name__}) {label}",
             "shape": list(x_np.shape), "dtype": str(dtype).split(".")[1],
@@ -3683,9 +3969,9 @@ PARALLEL_RANKS_DIR = os.path.join(ROOT, "build", "parallel_ranks")
 def start_parallel_ranks(where: str = PARALLEL_RANKS_DIR) -> list:
     """Start PARALLEL_RANKS rank processes (:func:`parallel_rank`) on card
     0; :func:`wait_parallel_ranks` collects them.  ``main`` starts them
-    with the constrained phase, so that their minute and a half overlaps
-    it and the examples phase (whose processes also run beside it): the
-    walls of both phases are taken beside them."""
+    with the solvers phase, so that their minute and a half overlaps it,
+    the constrained phase and the examples phase (whose processes also run
+    beside it): the walls of these phases are taken beside them."""
     import shutil
 
     shutil.rmtree(where, ignore_errors=True)
@@ -3728,79 +4014,132 @@ def wait_parallel_ranks(procs, where: str = PARALLEL_RANKS_DIR) -> list:
 SIDE_DIR = os.path.join(ROOT, "build", "side")
 
 
-def side_process(where: str) -> int:
-    """The side process (``chip_smoke.py --side DIR``; see SIDE_TIMEOUT):
-    :func:`suite_plain_passes`, then :func:`block_checks`, then part (f)'s
-    world of one (:func:`dense_world_of_one`), each raising on failure;
-    writes ``DIR/side.pt``."""
+def run_job(mods, job, where=None):
+    """One job of MAIN_PARITY_JOBS or HELPER_JOBS: ``parity DTYPE PART``
+    (:func:`parity_part`), ``suite_plain`` (:func:`suite_plain_passes`),
+    ``main_plain`` (:func:`main_reference`), ``blocks``
+    (:func:`block_checks`), ``dense`` (part (f)'s world of one,
+    :func:`dense_world_of_one`, its store in ``where``),
+    ``constrained_plain`` (:func:`constrained_reference`) or
+    ``solvers_plain`` (:func:`solvers_reference` of each run of
+    SOLVER_RUNS with kernels, by index).  Each raises on failure."""
+    import torch
+
+    kind, *args = job.split()
+    if kind == "parity":
+        return parity_part(mods, *args)
+    if kind == "suite_plain":
+        return suite_plain_passes(mods)
+    if kind == "blocks":
+        return block_checks(mods, torch.device("cuda"))
+    if kind == "dense":
+        return dense_world_of_one(mods, where)
+    if kind == "main_plain":
+        return main_reference(mods)
+    if kind == "constrained_plain":
+        return constrained_reference(mods, torch.device("cuda"))
+    if kind == "solvers_plain":
+        obj = mods.cns.models.pairwise_rosenbrock()
+        return {i: solvers_reference(mods, obj, run)
+                for i, run in enumerate(SOLVER_RUNS) if run[-1]}
+    raise ValueError(f"no job {job!r}")
+
+
+def job_file(where: str, job: str) -> str:
+    return os.path.join(where, job.replace(" ", "_") + ".pt")
+
+
+def side_process(where: str, jobs) -> int:
+    """A helper process (``chip_smoke.py --side DIR JOB...``; see
+    HELPER_JOBS): runs ``jobs`` in order, each one's result and seconds
+    saved to its own file in DIR as soon as it is done."""
     import torch
 
     sys.path.insert(0, ROOT)
     mods = Mods()
-    rec = {}
-    t0 = time.perf_counter()
-    rec["suite_plain"] = suite_plain_passes(mods)
-    rec["suite_plain_s"] = time.perf_counter() - t0
-    log(f"[side] the plain version's suite passes: "
-        f"{rec['suite_plain_s']:.1f} s")
-    t0 = time.perf_counter()
-    rec["blocks"] = block_checks(mods, torch.device("cuda"))
-    rec["blocks_s"] = time.perf_counter() - t0
-    log(f"[side] block checks: {rec['blocks_s']:.1f} s")
-    t0 = time.perf_counter()
-    rec["dense"] = dense_world_of_one(mods, where)
-    rec["dense_s"] = time.perf_counter() - t0
-    log(f"[side] (f) world of one: {rec['dense_s']:.1f} s")
-    torch.save(rec, os.path.join(where, "side.pt"))
+    for job in jobs:
+        t0 = time.perf_counter()
+        out = run_job(mods, job, where)
+        seconds = time.perf_counter() - t0
+        log(f"[side] {job}: {seconds:.1f} s")
+        path = job_file(where, job)
+        torch.save({"result": out, "seconds": seconds}, path + ".tmp")
+        os.replace(path + ".tmp", path)
     return 0
 
 
-def start_side(where: str = SIDE_DIR):
-    """Start the side process on card 0, its output to ``DIR/side.log``;
-    it is stopped at exit if :func:`wait_side` has not collected it."""
-    import atexit
-    import shutil
+class Helpers:
+    """The helper processes of HELPER_JOBS, one a list, started on card 0
+    right after the build, each its log in ``DIR/I/side.log``: ``result``
+    waits for one job's result, ``finish`` for every process (their logs
+    repeated here).  A process that fails or outlasts SIDE_TIMEOUT fails
+    the script; every one is stopped at exit."""
 
-    shutil.rmtree(where, ignore_errors=True)
-    os.makedirs(where)
-    out = open(os.path.join(where, "side.log"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--side", where],
-        cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"}, stdout=out,
-        stderr=subprocess.STDOUT, text=True)
-    out.close()
-    proc.started = time.perf_counter()
+    def __init__(self, jobs=None, where: str = SIDE_DIR):
+        import atexit
+        import shutil
 
-    def stop():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+        shutil.rmtree(where, ignore_errors=True)
+        self.procs = []
+        for i, js in enumerate(HELPER_JOBS if jobs is None else jobs):
+            d = os.path.join(where, str(i))
+            os.makedirs(d)
+            out = open(os.path.join(d, "side.log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--side", d, *js],
+                cwd=ROOT, env={**os.environ, "OMP_NUM_THREADS": "1"},
+                stdout=out, stderr=subprocess.STDOUT, text=True)
+            out.close()
+            self.procs.append((proc, d, list(js)))
+        self.deadline = time.perf_counter() + SIDE_TIMEOUT
+        self.seconds = {}
+        self.waited = 0.0  # seconds the script spent in result and finish
+        atexit.register(self.stop)
 
-    atexit.register(stop)
-    return proc
+    def stop(self) -> None:
+        for proc, _, _ in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
+    def _failed(self, proc, where, why):
+        self.stop()
+        with open(os.path.join(where, "side.log")) as f:
+            log(f"[side] {where}: {why}:\n" + f.read()[-4000:])
+        raise AssertionError(f"a helper process failed ({why})")
 
-def wait_side(proc, where: str = SIDE_DIR) -> dict:
-    """The side process's record, once it has ended (SIDE_TIMEOUT after it
-    started at the latest), its log repeated here; raises if it failed."""
-    import torch
+    def result(self, job):
+        import torch
 
-    try:
-        proc.wait(timeout=max(1.0, proc.started + SIDE_TIMEOUT
-                              - time.perf_counter()))
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    with open(os.path.join(where, "side.log")) as f:
-        text = f.read()
-    for line in text.splitlines():
-        if line.startswith("["):
-            log(line)
-    if proc.returncode != 0:
-        log(f"[side] exited {proc.returncode}:\n" + text[-4000:])
-        raise AssertionError("the side process failed")
-    return torch.load(os.path.join(where, "side.pt"), weights_only=False)
+        proc, where, _ = next(h for h in self.procs if job in h[2])
+        path = job_file(where, job)
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            if proc.poll() is not None and not os.path.exists(path):
+                self._failed(proc, where, f"exited {proc.returncode}")
+            if time.perf_counter() > self.deadline:
+                self._failed(proc, where, f"{job} outlasted SIDE_TIMEOUT")
+            time.sleep(0.1)
+        self.waited += time.perf_counter() - t0
+        rec = torch.load(path, weights_only=False)
+        self.seconds[job] = rec["seconds"]
+        return rec["result"]
+
+    def finish(self) -> None:
+        t0 = time.perf_counter()
+        for proc, where, _ in self.procs:
+            try:
+                proc.wait(timeout=max(1.0,
+                                      self.deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                self._failed(proc, where, "outlasted SIDE_TIMEOUT")
+            with open(os.path.join(where, "side.log")) as f:
+                for line in f.read().splitlines():
+                    if line.startswith("["):
+                        log(line)
+            if proc.returncode != 0:
+                self._failed(proc, where, f"exited {proc.returncode}")
+        self.waited += time.perf_counter() - t0
 
 
 def quadratic_whole(x):
@@ -3882,7 +4221,7 @@ def dense_sharded(mods, run, shape, mesh, dev, log=False) -> dict:
 
 
 def dense_world_of_one(mods, where, dev=None) -> dict:
-    """Part (f) in a world of one under NCCL (the side process): each of
+    """Part (f) in a world of one under NCCL (a helper process): each of
     DENSE_RUNS sharded at its world-of-one shape against the unsharded
     card solve through the plain versions, bit for bit, and, where the
     two ranks' shape differs, sharded at that shape too.  Raises on a
@@ -3952,7 +4291,7 @@ def dense_world_of_one(mods, where, dev=None) -> dict:
 
 
 def parallel_dense_record(side, ranks) -> dict:
-    """Part (f): its world of one ran in the side process (``side``'s
+    """Part (f): its world of one ran in a helper process (``side``'s
     ``dense`` rows), its two ranks in part (b)'s rank processes (``ranks``:
     each rank's part (f) records); holds them to each other
     (:func:`parallel_dense_check`) and returns what the record keeps."""
@@ -4591,6 +4930,134 @@ def floors_main(mods, dev) -> dict:
     return rec
 
 
+def attainable(timed, dev) -> dict:
+    """Each timed kernel's (by kernel name) attainable time and bound regime
+    at its shape (``roofline.kernel_attainable_ms``): its bytes bound only
+    beyond the card's L2, its operations, a history kernel's chain of
+    dependent sums."""
+    from benchmarks_torch.roofline import card_params, kernel_attainable_ms
+
+    card = card_params(dev)
+    out = {}
+    for name, t in timed.items():
+        b, n = t.get("shape", HEADLINE_SHAPE)
+        ops = t.get("ops_per_call", t.get("ops_per_trip", 0.0))
+        ms, regime = kernel_attainable_ms(
+            name, b, n, t["bound_ms"], t["bound_by"], card,
+            ops / PEAK_OPS_PER_S["float32"] * 1e3)
+        out[name] = {"shape": [b, n], "attainable_ms": ms,
+                     "bound_regime": regime}
+    return out
+
+
+def _finite_figures(label, rec) -> None:
+    """Raise unless every number in ``rec`` (nested lists and dicts too,
+    booleans aside) is finite."""
+    import math
+
+    if isinstance(rec, dict):
+        for key, value in rec.items():
+            _finite_figures(f"{label}.{key}", value)
+    elif isinstance(rec, (list, tuple)):
+        for i, value in enumerate(rec):
+            _finite_figures(f"{label}[{i}]", value)
+    elif rec is None or (isinstance(rec, (int, float))
+                         and not isinstance(rec, bool)
+                         and not math.isfinite(rec)):
+        raise AssertionError(f"roofline: {label} is {rec}")
+
+
+def roofline_main(mods, dev, trip) -> dict:
+    """``benchmarks_torch/roofline.py`` on its path (the ``roofline_main``
+    phase), with ``trip``, ``floors_main``'s trip floor:
+
+    * at each of ROOFLINE_SHAPES, ``measure_shape`` (three runs of its
+      fixed-budget solves, ``flat_trip`` once a trip; launch counts set to
+      0 just before and read just after, and held to the runs' trips), the
+      evaluation's device time, and ``analyze_shape``: every figure finite,
+      ``pct_of_attainable`` at most 100, the bottleneck one of the module's
+      labels;
+    * ``measure_kernel_standalone`` at the headline shape: its chain
+      launches ``lbfgs_prologue`` exactly its two lengths plus the warm-up.
+
+    That no bound input is a solver kernel's measured time is a property
+    of ``analyze_shape`` alone, a host function; the CPU tests hold it.
+
+    Its launches stay out of the ``kernels`` line (the bench's path, as
+    ``floors_main``'s calibrations are not)."""
+    import torch
+
+    from benchmarks_torch import roofline
+
+    card = roofline.card_params(dev)
+    trip_ms = trip["host_us"] / 1e3
+    flat, prologue = mods.fs.flat_trip, mods.fstep.lbfgs_prologue
+    rec = {"card": vars(card), "trip_floor_ms": trip_ms, "rows": [],
+           "launches": {"flat_trip": 0}}
+    for b, n in ROOFLINE_SHAPES:
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        flat.launches = 0
+        row = roofline.measure_shape(b, n, device=dev)
+        launches = flat.launches
+        eval_ms = roofline.measure_eval_standalone(b, n, device=dev)
+        if eval_ms is None:
+            raise AssertionError(f"roofline ({b}, {n}): no device time for "
+                                 "the evaluation")
+        row = roofline.analyze_shape(row, card, eval_ms, trip_ms)
+        row["launches"] = launches
+        row["seconds"] = time.perf_counter() - t0
+        rec["launches"]["flat_trip"] += launches
+        if launches <= 0 or launches != sum(row["trips_runs"]):
+            raise AssertionError(f"roofline ({b}, {n}): {launches} "
+                                 f"flat_trip launches for the trips "
+                                 f"{row['trips_runs']}")
+        rec["rows"].append(row)
+
+    b, n = HEADLINE_SHAPE
+    torch.cuda.synchronize()
+    prologue.launches = 0
+    kern = roofline.measure_kernel_standalone(b, n, device=dev)
+    kern["launched"] = prologue.launches
+    rec["kernel_standalone"] = kern
+    rec["launches"]["lbfgs_prologue"] = prologue.launches
+    if prologue.launches != sum(kern["launches"]) + kern["warm_launches"]:
+        raise AssertionError(f"roofline: the chain launched lbfgs_prologue "
+                             f"{prologue.launches} times: {kern}")
+    head = next(r for r in rec["rows"] if (r["batch"], r["n"]) == (b, n))
+    head["kernel_ms"] = kern["kernel_ms"]
+    head["kernel_pct_of_step"] = (100.0 * kern["kernel_ms"]
+                                  / head["per_batched_iter_ms"])
+
+    for row in rec["rows"]:
+        shape = (row["batch"], row["n"])
+        _finite_figures(f"row {shape}", row)
+        if not row["pct_of_attainable"] <= 100.0:
+            raise AssertionError(f"roofline {shape}: "
+                                 f"{row['pct_of_attainable']:.2f}% of the "
+                                 "attainable bound")
+        if row["bottleneck"] not in roofline.LABELS:
+            raise AssertionError(f"roofline {shape}: bottleneck "
+                                 f"{row['bottleneck']!r}")
+        log(f"[roofline] {shape} float32, {row['iterations']} iterations x "
+            f"{row['pipeline']} batches: {row['per_batched_iter_ms']:.4f} "
+            f"ms a batched iteration (host), card busy "
+            f"{row['device_busy_ms_per_iter']:.4f} ms "
+            f"({row['device_busy_pct']:.1f}%), nfev "
+            f"{row['nfev_per_iter']:.3f}, evaluation {row['eval_ms']:.4f} "
+            f"ms; carry {row['working_set_bytes'] / 1e6:.1f} MB "
+            f"({'in' if row['l2_resident'] else 'over'} the L2); attainable "
+            f"{row['attainable_ms']:.4f} ms ({row['pct_of_attainable']:.1f}%"
+            f", {row['bottleneck']}); flat_trip launches {row['launches']}; "
+            f"{row['seconds']:.1f} s")
+    _finite_figures("kernel_standalone", kern)
+    log(f"[roofline] lbfgs_prologue alone ({b}, {n}) float32: "
+        f"{kern['kernel_ms']:.4f} ms a launch ({kern['kernel_gbps']:.0f} "
+        f"GB/s), {prologue.launches} launches, starved chains "
+        f"{kern['starved']} | {card_line()}")
+    return rec
+
+
 def model_lbfgsb_case(cns, dev):
     """Part (e)'s solve: ``(x0, drawn pairs, solver, stopping)``; see
     MODEL_LBFGSB_N."""
@@ -5084,8 +5551,8 @@ def examples_main(mods, dev) -> dict:
 
 
 def scaling_harness(card) -> dict:
-    """benchmarks_torch/scaling.py as a user runs it, its line held; see
-    SCALING_CUT."""
+    """benchmarks_torch/scaling.py as a user runs it (SCALING_REPEATS timed
+    reps a leg), its line held; see SCALING_CUT."""
     import math
 
     import torch
@@ -5093,7 +5560,8 @@ def scaling_harness(card) -> dict:
     cards = torch.cuda.device_count()
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, os.path.join(ROOT, "benchmarks_torch", "scaling.py")],
+        [sys.executable, os.path.join(ROOT, "benchmarks_torch", "scaling.py"),
+         "--repeats", str(SCALING_REPEATS)],
         cwd=ROOT, capture_output=True, text=True, timeout=SCALING_TIMEOUT)
     wall = time.perf_counter() - t0
     if proc.returncode:
@@ -5217,8 +5685,8 @@ def parallel_main(mods, dev, rank_procs, blocks) -> dict:
     """The multi-device solves (the ``parallel_main`` phase): parts (a)-(e)
     of the comment above PARALLEL_SHAPES, each raising on failure, and the
     ranks' records of part (f) (``dense_ranks``, which ``main`` holds to
-    the side process's world of one).  Part
-    (b)'s block checks (``blocks``) ran in the side process.  Part (b)'s,
+    a helper process's world of one).  Part
+    (b)'s block checks (``blocks``) ran in a helper process.  Part (b)'s,
     (c)'s and (e)'s two ranks (``rank_procs``, started by ``main`` with the
     constrained phase) are waited for first; then
     this process joins a world of one under NCCL (a ``FileStore`` under
@@ -5288,5 +5756,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--example-world-of-one"]:
         sys.exit(example_world_of_one(sys.argv[2]))
     if sys.argv[1:2] == ["--side"]:
-        sys.exit(side_process(sys.argv[2]))
+        sys.exit(side_process(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

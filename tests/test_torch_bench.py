@@ -58,6 +58,35 @@ def test_grid_row_on_the_cpu():
     assert row["lane_iters_per_s"] > 0 and row["launches"] == {}
 
 
+def test_grid_bounds_with_the_inputs_passed_in():
+    """The bounds a grid row gets on the card, here from an evaluation
+    time and a trip floor passed in: the keys it had keep their values,
+    ``trip_bound``'s keys keep their meaning, and the attainable bound of a
+    batched iteration is ``roofline.analyze_shape``'s."""
+    from benchmarks_torch import roofline
+
+    row = bench_torch.grid_row(8, 16, "cpu", reps=1)
+    before = dict(row)
+    card = roofline.card_params()
+    eval_ms, trip_ms = 0.04, 0.7
+    assert bench_torch.grid_bounds(row, card, eval_ms, trip_ms) is row
+    assert {k: row[k] for k in before} == before
+    bound = roofline.trip_bound(row["trips"], row["bytes_per_trip"], eval_ms,
+                                trip_ms)
+    assert {k: row[k] for k in bound} == bound
+    assert row["bound_share"] == bound["bound_ms"] / (row["wall_s"] * 1e3)
+    its = row["batched_iterations"]
+    want = roofline.analyze_shape(
+        {"batch": 8, "n": 16, "nfev_per_iter": row["trips"] / its,
+         "per_batched_iter_ms": row["wall_s"] * 1e3 / its},
+        card, eval_ms, trip_ms)
+    for key in ("attainable_ms", "pct_of_attainable", "bottleneck"):
+        assert row[key] == want[key]
+    assert row["bottleneck"] in roofline.LABELS
+    # Per trip the attainable time holds at least the two measured floors.
+    assert row["attainable_ms"] >= row["trips"] / its * (eval_ms + trip_ms)
+
+
 @pytest.mark.parametrize("run", legs.SOLVER_RUNS,
                          ids=[r[0] + "_" + str(r[3][0]) for r in
                               legs.SOLVER_RUNS])
