@@ -33,6 +33,7 @@ from .core import (
     Objective,
     ProgressState,
     SolverBase,
+    SpanRecorder,
     Status,
     StoppingCriteria,
     conservative_stopping,
@@ -45,6 +46,7 @@ from .core import (
     minimize_batched,
     objective,
     print_progress,
+    record_spans,
     resume,
     status_message,
 )
@@ -82,6 +84,7 @@ __all__ = [
     "Objective",
     "ProgressState",
     "SolverBase",
+    "SpanRecorder",
     "Status",
     "StoppingCriteria",
     "TrustRegionNewton",
@@ -101,6 +104,7 @@ __all__ = [
     "ops",
     "parallel",
     "print_progress",
+    "record_spans",
     "resume",
     "solvers",
     "status_message",

@@ -43,6 +43,7 @@ from typing import Any
 
 import torch
 
+from . import spans
 from .callbacks import IterationTrace, init_trace, record_trace
 from .objective import FunctionState, Objective
 from .progress import (
@@ -342,31 +343,34 @@ def minimize_batched(
 
 def _solve_batched(objective, x0_batch, solver, stopping, trace, internals,
                    callback, device) -> MinimizeResult:
-    solver.check_mode(objective)
-    device = resolve_device(device)
-    x0 = torch.as_tensor(x0_batch, device=device)
-    if not x0.is_floating_point():
-        x0 = x0.to(torch.float64)
-    if x0.dim() != 2:
-        raise ValueError(f"x0_batch must be (B, n), got {tuple(x0.shape)}")
-    if stopping is None:
-        stopping = solver.default_stopping(x0.dtype)
-    state0 = objective.evaluate(x0.contiguous(), nfev=0)
-    compute_cond_h = _wants_driver_cond_h(objective, stopping)
-    if (internals is None and trace == 0 and callback is None
-            and not compute_cond_h
-            and solver.supports_solve_batched(objective)):
-        return solver.solve_batched(objective, state0, stopping)
-    state0 = _own(state0, device)
-    internals0 = (
-        solver.init_batched(objective, state0) if internals is None
-        else _own(internals, device)
-    )
-    progress0 = init_progress((x0.shape[0],), x0.dtype, device)
-    return _solve_loop_batched(
-        objective, solver, state0, internals0, progress0, stopping, trace,
-        callback, compute_cond_h,
-    )
+    with spans.span(spans.SOLVE):
+        solver.check_mode(objective)
+        device = resolve_device(device)
+        x0 = torch.as_tensor(x0_batch, device=device)
+        if not x0.is_floating_point():
+            x0 = x0.to(torch.float64)
+        if x0.dim() != 2:
+            raise ValueError(
+                f"x0_batch must be (B, n), got {tuple(x0.shape)}")
+        if stopping is None:
+            stopping = solver.default_stopping(x0.dtype)
+        with spans.span(spans.EVAL):
+            state0 = objective.evaluate(x0.contiguous(), nfev=0)
+        compute_cond_h = _wants_driver_cond_h(objective, stopping)
+        if (internals is None and trace == 0 and callback is None
+                and not compute_cond_h
+                and solver.supports_solve_batched(objective)):
+            return solver.solve_batched(objective, state0, stopping)
+        state0 = _own(state0, device)
+        internals0 = (
+            solver.init_batched(objective, state0) if internals is None
+            else _own(internals, device)
+        )
+        progress0 = init_progress((x0.shape[0],), x0.dtype, device)
+        return _solve_loop_batched(
+            objective, solver, state0, internals0, progress0, stopping,
+            trace, callback, compute_cond_h,
+        )
 
 
 def _unbatch(tree):

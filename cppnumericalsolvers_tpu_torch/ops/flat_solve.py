@@ -48,6 +48,7 @@ import dataclasses
 
 import torch
 
+from ..core import spans
 from ..core.objective import FunctionState
 from ..core.progress import (
     PAST_RING_SIZE,
@@ -528,39 +529,59 @@ def flat_lbfgs_solve(
     """Run the flat batched solve from the evaluated batched start
     ``state0`` (B, n).  ``trip`` is :func:`flat_trip` (the default: the
     kernel on CUDA tensors) or :func:`flat_trip_reference` (the plain
-    version anywhere)."""
+    version anywhere).
+
+    Under :func:`~..core.spans.record_spans` the carry's set-up is span
+    ``cns.init``, each trip's status read, evaluation and step ``cns.read``,
+    ``cns.eval`` and ``cns.trip``, and the result's assembly
+    ``cns.assemble``; without a recorder the loop reads no clock."""
     if trip is None:
         trip = flat_trip
-    st, x_trial = init_flat_state(state0, m, max_fev)
+    rec = spans.recorder()
+    with spans.span(spans.INIT):
+        st, x_trial = init_flat_state(state0, m, max_fev)
     dtype = st.x0.dtype
     trips = 0
-    # One device-to-host read per trip: the any-lane-continuing predicate.
-    while any_lane(st.si[:, _I_STATUS] == _CONT):
+    t = spans.clock_ns() if rec is not None else 0
+    while True:
+        # One device-to-host read per trip: the any-lane-continuing
+        # predicate.
+        go = any_lane(st.si[:, _I_STATUS] == _CONT)
+        if rec is not None:
+            t = rec.add(spans.READ, t, spans.clock_ns())
+        if not go:
+            break
         f_t, g_t = objective.batched_value_and_grad(x_trial)
+        if rec is not None:
+            t = rec.add(spans.EVAL, t, spans.clock_ns())
         trip(st, f_t.to(dtype).contiguous(), g_t.to(dtype).contiguous(),
              x_trial, stopping, max_fev)
+        if rec is not None:
+            t = rec.add(spans.TRIP, t, spans.clock_ns())
         trips += 1
 
-    state = FunctionState(
-        x=st.x0, value=st.sf[:, _F_F0].clone(), gradient=st.g0,
-        nfev=st.si[:, _I_NFEV].clone(),
-    )
-    progress = ProgressState(
-        num_iterations=st.si[:, _I_NUMIT].clone(),
-        x_delta=st.sf[:, _F_XDELTA].clone(),
-        x_delta_violations=st.si[:, _I_XVIOL].clone(),
-        f_delta=st.sf[:, _F_FDELTA].clone(),
-        f_delta_violations=st.si[:, _I_FVIOL].clone(),
-        gradient_norm=st.sf[:, _F_GNORM].clone(),
-        condition_hessian=torch.zeros_like(st.sf[:, _F_F0]),
-        status=st.si[:, _I_STATUS].clone(),
-        past_ring=st.ring,
-        past_pos=st.si[:, _I_PASTPOS].clone(),
-    )
-    head = st.si[:, _I_HEAD]
-    return FlatSolveResult(
-        state=state, progress=progress,
-        s=history_in_age_order(st.s, head), y=history_in_age_order(st.y, head),
-        count=st.si[:, _I_COUNT].clone(), gamma=st.sf[:, _F_GAMMA].clone(),
-        trips=trips,
-    )
+    with spans.span(spans.ASSEMBLE):
+        state = FunctionState(
+            x=st.x0, value=st.sf[:, _F_F0].clone(), gradient=st.g0,
+            nfev=st.si[:, _I_NFEV].clone(),
+        )
+        progress = ProgressState(
+            num_iterations=st.si[:, _I_NUMIT].clone(),
+            x_delta=st.sf[:, _F_XDELTA].clone(),
+            x_delta_violations=st.si[:, _I_XVIOL].clone(),
+            f_delta=st.sf[:, _F_FDELTA].clone(),
+            f_delta_violations=st.si[:, _I_FVIOL].clone(),
+            gradient_norm=st.sf[:, _F_GNORM].clone(),
+            condition_hessian=torch.zeros_like(st.sf[:, _F_F0]),
+            status=st.si[:, _I_STATUS].clone(),
+            past_ring=st.ring,
+            past_pos=st.si[:, _I_PASTPOS].clone(),
+        )
+        head = st.si[:, _I_HEAD]
+        return FlatSolveResult(
+            state=state, progress=progress,
+            s=history_in_age_order(st.s, head),
+            y=history_in_age_order(st.y, head),
+            count=st.si[:, _I_COUNT].clone(),
+            gamma=st.sf[:, _F_GAMMA].clone(), trips=trips,
+        )

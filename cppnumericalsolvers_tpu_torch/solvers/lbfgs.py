@@ -44,6 +44,7 @@ import dataclasses
 
 import torch
 
+from ..core import spans
 from ..core.driver import MinimizeResult, SolverBase
 from ..core.objective import FunctionState
 from ..core.tree import lane_amax, model_shard
@@ -184,15 +185,16 @@ class Lbfgs(SolverBase):
             objective, state0, stopping, m=self.m,
             max_fev=self.max_linesearch_fev,
         )
-        internals = self.init_batched(objective, state0)
-        internals = dataclasses.replace(
-            internals, s_memory=res.s, y_memory=res.y, mem_count=res.count,
-            gamma=res.gamma,
-        )
-        return MinimizeResult(
-            state=res.state, progress=res.progress, internals=internals,
-            trips=res.trips,
-        )
+        with spans.span(spans.ASSEMBLE):
+            internals = self.init_batched(objective, state0)
+            internals = dataclasses.replace(
+                internals, s_memory=res.s, y_memory=res.y,
+                mem_count=res.count, gamma=res.gamma,
+            )
+            return MinimizeResult(
+                state=res.state, progress=res.progress, internals=internals,
+                trips=res.trips,
+            )
 
     def init_batched(self, objective, state, batch_minor: bool = False):
         """Empty internals for a batched start ``state`` ``(B, n)``:
