@@ -557,29 +557,32 @@ def trip_bound(trips, bytes_per_trip, eval_ms, trip_floor_ms) -> dict:
 
 
 def trip_floor_loop(k, device):
-    """``k`` trips of the port's eager loop with trivial content, as
-    ``benchmarks/roofline.py``'s trip skeleton: each trip evaluates the
-    objective ``sum(x * x)`` of ``x.T`` ((128, 8): 128 lanes of n = 8)
-    through ``batched_value_and_grad``, steps ``x - 1e-9 g`` transposed
-    back, launches ``trip_floor`` once on its 8 buffers, and reads one
-    any-lane predicate (``core.tree.any_lane`` of ``i < k``): an
-    evaluation, one launch and one status read, the structure of a flat
-    trip.  Returns ``(x, buffers)``."""
+    """``k`` trips of the port's eager loop with trivial content: each trip
+    evaluates the grid's objective (``models.pairwise_rosenbrock``) at x
+    through ``batched_value_and_grad`` (x of ``FLOOR_SHAPE`` read as 128
+    lanes of n = 8: one closed-form launch, as a flat trip's evaluation),
+    launches ``trip_floor`` once on its 8 buffers, and reads one any-lane
+    predicate (``core.tree.any_lane`` of ``i < k``): an evaluation, one
+    launch and one status read, the structure of a flat trip.
+    ``benchmarks/roofline.py``'s skeleton also steps x through a transpose
+    pair, which XLA fuses into its loop; a flat trip of the port has no
+    such launches, and a floor must hold no work the trip does not.
+    Returns ``(x, buffers)``."""
     import torch
 
     import cppnumericalsolvers_tpu_torch as cns
     from cppnumericalsolvers_tpu_torch.core.tree import any_lane
     from cppnumericalsolvers_tpu_torch.ops import floors
 
-    obj = cns.objective(lambda v: torch.sum(v * v))
+    obj = cns.models.pairwise_rosenbrock()
     x = torch.ones(FLOOR_SHAPE, dtype=torch.float32, device=device)
+    lanes = x.view(FLOOR_SHAPE[1], FLOOR_SHAPE[0])
     bufs = [torch.full(FLOOR_SHAPE, float(i), dtype=torch.float32,
                        device=device)
             for i in range(floors.TRIP_FLOOR_BUFFERS)]
     i = torch.zeros((), dtype=torch.int32, device=device)
     while True:
-        _, g = obj.batched_value_and_grad(x.T)
-        x = x - 1e-9 * g.T
+        obj.batched_value_and_grad(lanes)
         floors.trip_floor(bufs)
         i = i + 1
         if not any_lane(i < k):

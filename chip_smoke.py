@@ -7,8 +7,10 @@ Ten paths, the first four through ``minimize_batched(objective, x0_batch,
 Lbfgs(m=10))``, the fifth through ``minimize_batched`` with the other
 solvers, the sixth through L-BFGS-B and ``AugmentedLagrangian``, the
 seventh through the examples and ``entry_torch.py``, the eighth through the
-multi-device solves of ``parallel`` and the scaling harness, the last
-through the bench's calibrations and its roofline:
+multi-device solves of ``parallel`` and the scaling harness, the ninth
+and tenth through the bench's calibrations and its roofline, and beside
+them the batched evaluation that every one of the pairwise Rosenbrock's
+solves runs:
 
 * the flat solve (a fresh solve without a trace), whose loop trip is one
   batched objective evaluation plus one ``flat_trip`` kernel launch;
@@ -70,11 +72,15 @@ through the bench's calibrations and its roofline:
   fixed-budget solves (the flat loop: ``flat_trip`` once a trip) and
   attainable bound at an L2-resident and a streaming shape, with
   ``floors_main``'s trip floor, and its chain of ``lbfgs_prologue``
-  launches.
+  launches;
+* MGH 21's closed-form evaluation (``objective_main``): the
+  ``pairwise_rosenbrock`` kernel, through which every batched evaluation
+  of the pairwise extended Rosenbrock above runs, held against the vmap
+  path and its plain version and timed beside them.
 
 Phases (each raises on failure, so the script then exits non-zero):
 
-1. build   compile the nine sources of ``ops/csrc/`` with nvcc for sm_90a,
+1. build   compile the ten sources of ``ops/csrc/`` with nvcc for sm_90a,
            all at once, load them, and print each kernel's registers,
            spills and stack frame (ptxas -v);
 2. card    print the card's name and power limit (nvidia-smi);
@@ -146,7 +152,11 @@ Phases (each raises on failure, so the script then exits non-zero):
            chain's length, timed, then the two calibrations run once.
            The roofline (``roofline_main``): every figure finite, every
            row at most 100% of its attainable bound with its bottleneck
-           named, the launches counted;
+           named, the launches counted.  The closed-form evaluation
+           (``objective_main``): its kernel's launches over the phases
+           above, then the kernel against the vmap path and its plain
+           version at OBJECTIVE_SHAPES, timed at the benchmark's two cell
+           shapes;
 5. timing  CUDA events around every kernel call and evaluation, plain,
            kernel, kernel, plain, on the host clock and on the card's own
            time, a count of the bytes and operations each call's data
@@ -359,6 +369,21 @@ REPLACES = {
     "trip_floor": "benchmarks/roofline.py:560",
     "launch_floor": "benchmarks/roofline.py:640",
 }
+# MGH 21's closed-form batched evaluation (ops/objectives.py), a kernel
+# that replaces no Pallas kernel (the JAX package's evaluation is XLA's
+# fusion of vmap(value_and_grad)), held in ``objective_main`` against the
+# vmap path and against its plain version on the card at the benchmark's
+# two cell shapes in float32 and at small ragged shapes (a float2 unit in
+# float32, a block a lane over a ragged row in float64).  The gradient must
+# have the vmap path's bits; the value, summed in another order than
+# torch.sum's, lies within OBJECTIVE_RTOL of it, relative; a lane's value
+# has the same bits at B = 1 as in the whole batch.
+OBJECTIVE_KERNEL = "pairwise_rosenbrock"
+OBJECTIVE_SHAPES = [(32768, 4096, "float32"), (4194304, 32, "float32"),
+                    (1000, 66, "float64"), (1000, 30, "float32")]
+OBJECTIVE_TIMED = ((32768, 4096), (4194304, 32))
+OBJECTIVE_RTOL = {"float32": 1e-5, "float64": 1e-13}
+OBJECTIVE_ROUNDS = 5
 # Float outputs: |kernel - plain| <= RTOL * scale, where scale is the
 # largest magnitude in the lane's vector (or the scalar itself).  The kernel
 # sums in another order than torch.sum, so the floor is a few ulps of a
@@ -608,7 +633,7 @@ class Mods:
         import cppnumericalsolvers_tpu_torch as cns
         from cppnumericalsolvers_tpu_torch.ops import _build, _kernel
         from cppnumericalsolvers_tpu_torch.ops import flat_solve as fs
-        from cppnumericalsolvers_tpu_torch.ops import floors
+        from cppnumericalsolvers_tpu_torch.ops import floors, objectives
         from cppnumericalsolvers_tpu_torch.ops import fused_linesearch as fl
         from cppnumericalsolvers_tpu_torch.ops import fused_step as fstep
         from cppnumericalsolvers_tpu_torch.ops import fused_step_t as ft
@@ -620,6 +645,8 @@ class Mods:
         self.lbb = lbb
         #: The calibration kernels' wrappers and plain versions.
         self.floors = floors
+        #: MGH 21's closed-form evaluation and its plain version.
+        self.objectives = objectives
         self.K = _kernel
         self.fstep, self.ft, self.tl, self.lb = fstep, ft, tl, lb
         #: Every kernel wrapper but ``flat_trip`` (each counts its launches)
@@ -777,7 +804,9 @@ def main() -> int:
     solver = cns.Lbfgs(m=M, max_linesearch_fev=MAX_FEV)
     stop32 = cns.default_stopping(torch.float32)
     main_refs = helpers.result("main_plain")
-    main_launches = {name: 0 for name in REPLACES}
+    main_launches = {name: 0 for name in (*REPLACES, OBJECTIVE_KERNEL)}
+    closed_form = mods.objectives.pairwise_rosenbrock_value_and_grad
+    closed_form.launches = 0
     shapes = []
     for b, n in MAIN_SHAPES:
         x0 = start(b, n, torch.float32)
@@ -966,6 +995,16 @@ def main() -> int:
     record["roofline_phase_s"] = time.perf_counter() - t0
     log(f"[main] roofline: {record['roofline_phase_s']:.1f} s")
     mark("roofline")
+    # The closed form's kernel launches in this process's main-path phases;
+    # the solvers' solves on the CPU run its plain version, uncounted.
+    main_launches[OBJECTIVE_KERNEL] = closed_form.launches
+
+    t0 = time.perf_counter()
+    record["objective"] = objective_main(mods, dev)
+    max_abs_err[OBJECTIVE_KERNEL] = record["objective"]["max_abs_err"]
+    record["objective_phase_s"] = time.perf_counter() - t0
+    log(f"[main] objective: {record['objective_phase_s']:.1f} s")
+    mark("objective")
 
     # 5. timing ---------------------------------------------------------------
     for row in shapes:
@@ -1057,6 +1096,22 @@ def main() -> int:
         "shape": timed[name].get("shape", list(HEADLINE_SHAPE)),
         "dtype": "float32",
     } for name in REPLACES]}
+    obj_row = record["objective"]["timed"][0]
+    kernels["kernels"].append({
+        "name": OBJECTIVE_KERNEL,
+        "route": "cuda",
+        "source": f"cppnumericalsolvers_tpu_torch/ops/csrc/{OBJECTIVE_KERNEL}.cu",
+        "replaces": None,
+        "launches": main_launches[OBJECTIVE_KERNEL],
+        "max_abs_err": max_abs_err[OBJECTIVE_KERNEL],
+        "ms": obj_row["ms"],
+        "plain_ms": obj_row["plain_ms"],
+        "bound_ms": obj_row["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": obj_row["vmap_ms"],
+        "shape": obj_row["shape"],
+        "dtype": "float32",
+    })
     for k in kernels["kernels"]:
         if k["launches"] <= 0:
             raise AssertionError(f"{k['name']} never launched on its path")
@@ -4791,6 +4846,115 @@ def padded_ms(fn, calls=FLOOR_TIMED_LAUNCHES, pad=KERNEL_PAD):
     z.record()
     torch.cuda.synchronize()
     return a.elapsed_time(z) / calls, bool(starved)
+
+
+def objective_main(mods, dev) -> dict:
+    """MGH 21's closed-form evaluation (the ``objective_main`` phase): at
+    each of OBJECTIVE_SHAPES, from starts uniform in [-2, 2] drawn on the
+    card (three rows set to reach x* = 1, signed zeros and entries near
+    1e3), the kernel (``ops.objectives.pairwise_rosenbrock_value_and_grad``)
+    against ``vmap(grad_and_value(fn))`` and against its plain version run
+    on the card: the gradient bit for bit, the value within OBJECTIVE_RTOL
+    (relative), every lane's value bits the same at B = 1 as in the batch
+    (three lanes), a misaligned copy of x giving the same bits.  At
+    OBJECTIVE_TIMED, device ms a call by CUDA events, in rounds of kernel,
+    vmap path, plain version, vmap path, kernel (medians over
+    OBJECTIVE_ROUNDS rounds), beside the bound: x read once, g and f
+    written once at 3.35 TB/s.  Raises on a difference."""
+    import statistics
+
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    ob = mods.objectives
+    kern, plain = ob.pairwise_rosenbrock_value_and_grad, \
+        ob.pairwise_rosenbrock_value_and_grad_reference
+    fn = mods.cns.models.pairwise_rosenbrock().fn
+
+    def vm(x):
+        g, f = vmap(grad_and_value(fn))(x)
+        return f, g
+
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+    def device_ms(call, x, reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for _ in range(reps):
+            call(x)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / reps
+
+    rows, timed, max_abs = [], [], 0.0
+    for b, n, dname in OBJECTIVE_SHAPES:
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device=dev).manual_seed(SEED + b + n)
+        x = torch.empty((b, n), device=dev, dtype=dtype).uniform_(
+            -2.0, 2.0, generator=gen)
+        x[0, :4] = 1.0
+        x[1, :2] = torch.tensor([0.0, -0.0])
+        x[2] += 1e3
+        f_k, g_k = kern(x)
+        f_v, g_v = vm(x)
+        f_p, g_p = plain(x)
+        lanes = [0, b // 2, b - 1]
+        f_one = torch.cat([kern(x[i:i + 1].clone())[0] for i in lanes])
+        shifted = torch.empty(b * n + 1, device=dev, dtype=dtype)[1:].view(b, n)
+        shifted.copy_(x)
+        f_s, g_s = kern(shifted)
+        rel = float(((f_k.double() - f_v.double()).abs()
+                     / f_v.double().abs()).max())
+        rel_p = float(((f_k.double() - f_p.double()).abs()
+                       / f_p.double().abs()).max())
+        row = {
+            "shape": [b, n], "dtype": dname,
+            "mapping": list(ob.pairwise_rosenbrock_mapping(n, dtype)),
+            "g_bits_vmap": torch.equal(bits(g_k), bits(g_v)),
+            "g_bits_plain": torch.equal(bits(g_k), bits(g_p)),
+            "f_rel_vmap": rel, "f_rel_plain": rel_p,
+            "f_bits_at_b1": torch.equal(bits(f_one), bits(f_k[lanes])),
+            "misaligned_bits": (torch.equal(bits(f_s), bits(f_k))
+                                and torch.equal(bits(g_s), bits(g_k))),
+        }
+        near = torch.arange(b, device=dev) != 2  # lane 2 is near 1e3
+        max_abs = max(max_abs, float((f_k - f_p)[near].abs().max()),
+                      float((g_k - g_p)[near].abs().max()))
+        log(f"[objective] ({b}, {n}) {dname}: " + json.dumps(row))
+        if not (row["g_bits_vmap"] and row["g_bits_plain"]
+                and row["f_bits_at_b1"] and row["misaligned_bits"]
+                and rel <= OBJECTIVE_RTOL[dname]
+                and rel_p <= OBJECTIVE_RTOL[dname]):
+            raise AssertionError(f"objective ({b}, {n}) {dname}: {row}")
+        del f_v, g_v, f_p, g_p, shifted, f_s, g_s
+        if (b, n) in OBJECTIVE_TIMED:
+            t = {"kernel": [], "vmap": [], "plain": []}
+            for call in (kern, vm, plain):
+                call(x)
+            for _ in range(OBJECTIVE_ROUNDS):
+                t["kernel"].append(device_ms(kern, x, 20))
+                t["vmap"].append(device_ms(vm, x, 3))
+                t["plain"].append(device_ms(plain, x, 3))
+                t["vmap"].append(device_ms(vm, x, 3))
+                t["kernel"].append(device_ms(kern, x, 20))
+            bound_ms = ((2 * b * n + b) * x.element_size()
+                        / HBM_BYTES_PER_S * 1e3)
+            med = {k: statistics.median(v) for k, v in t.items()}
+            trow = {"shape": [b, n], "dtype": dname, "ms": med["kernel"],
+                    "vmap_ms": med["vmap"], "plain_ms": med["plain"],
+                    "bound_ms": bound_ms,
+                    "pct_of_bound": 100.0 * bound_ms / med["kernel"]}
+            log(f"[time] objective ({b}, {n}) {dname}: kernel "
+                f"{trow['ms']:.4f} ms/call, vmap path {trow['vmap_ms']:.4f} "
+                f"ms, plain {trow['plain_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({trow['pct_of_bound']:.1f}%)")
+            timed.append(trow)
+        rows.append(row)
+        del x, f_k, g_k
+        torch.cuda.empty_cache()
+    return {"checks": rows, "timed": timed, "max_abs_err": max_abs}
 
 
 def floors_main(mods, dev) -> dict:

@@ -5,7 +5,12 @@ objective is a function ``x -> scalar`` on one ``(n,)`` tensor plus its
 differentiability mode; derivatives come from ``torch.func``.  The batched
 evaluation of a ``(B, n)`` batch is
 ``torch.func.vmap(torch.func.grad_and_value(fn))``, the counterpart of
-``jax.vmap(jax.value_and_grad(fn))``: one batched call for all lanes.
+``jax.vmap(jax.value_and_grad(fn))``: one batched call for all lanes.  A
+function may carry its own closed form instead: a ``batched_value_and_grad``
+method ``(B, n) -> ((B,), (B, n))`` with the dtypes it takes in ``dtypes``
+(``models.pairwise_rosenbrock``'s); the batched evaluation then calls it for
+those dtypes.  A composition (``+``, ``*``, ``min_zero``, ...) wraps ``fn``
+in a new function and takes the vmap path.
 
 ``fn`` must be written with operations ``torch.func.vmap`` can batch (no
 data-dependent Python control flow, no ``.item()``).
@@ -88,7 +93,14 @@ class Objective:
         return v, g
 
     def batched_value_and_grad(self, x: torch.Tensor):
-        """``(B, n) -> ((B,), (B, n))`` in one vmapped call."""
+        """``(B, n) -> ((B,), (B, n))``: ``fn``'s own closed form where it
+        carries one for x's dtype (``fn.batched_value_and_grad``, dtypes in
+        ``fn.dtypes``) and the mode is not ``"none"``, else one vmapped
+        call of ``grad_and_value(fn)``."""
+        closed = getattr(self.fn, "batched_value_and_grad", None)
+        if (closed is not None and self.mode != MODE_NONE
+                and x.dtype in self.fn.dtypes):
+            return closed(x)
         return self._batched_value_and_grad(x)
 
     @functools.cached_property

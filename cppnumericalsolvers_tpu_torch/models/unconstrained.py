@@ -3,7 +3,9 @@
 PyTorch counterpart of ``cppnumericalsolvers_tpu/models/unconstrained.py``,
 plus the pairwise extended Rosenbrock of the throughput grid
 (``benchmarks/roofline.py:108``).  All are functions ``x -> scalar`` on one
-``(n,)`` tensor, batched by ``torch.func.vmap``.
+``(n,)`` tensor, batched by ``torch.func.vmap``, but for the pairwise
+extended Rosenbrock's batched value and gradient, which its function
+carries in closed form (:func:`pairwise_rosenbrock`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from ..core.objective import Objective
 from ..core.tree import fixed_sum
+from ..ops.objectives import pairwise_rosenbrock_value_and_grad
 
 __all__ = [
     "quickstart_quadratic",
@@ -60,19 +63,36 @@ def extended_rosenbrock(n: int | None = None) -> Objective:
     return Objective(fn, mode="second")
 
 
-@functools.lru_cache(maxsize=None)
-def pairwise_rosenbrock() -> Objective:
-    """Extended Rosenbrock over disjoint (even, odd) pairs: the throughput
-    grid's objective (benchmarks/roofline.py:108); n must be even.  Its sum
-    is ``core.tree.fixed_sum``, so a lane's value has the same bits in a
-    batch of any size on the card (``torch.sum`` of a batch of long rows
-    adds in an order that depends on the number of rows)."""
+class _PairwiseRosenbrock:
+    """MGH problem 21, the extended Rosenbrock over disjoint (even, odd)
+    pairs, as a function ``x -> scalar`` on one ``(n,)`` tensor (n even),
+    carrying its closed-form batched value and gradient.  A call is the
+    function as ``torch.func`` differentiates it; its sum is
+    ``core.tree.fixed_sum``, so a lane's value has the same bits in a batch
+    of any size on the card (``torch.sum`` of a batch of long rows adds in
+    an order that depends on the number of rows).
+    ``batched_value_and_grad`` is ``ops.objectives``'s closed form, for
+    the dtypes in ``dtypes``: the plain version on the CPU (the vmap path's
+    bits), one kernel launch on the card (the gradient's bits, the value to
+    a few ulps of its sum)."""
 
-    def fn(x):
+    dtypes = (torch.float32, torch.float64)
+
+    def __call__(self, x):
         even, odd = x[0::2], x[1::2]
         return fixed_sum(100.0 * (odd - even**2) ** 2 + (1.0 - even) ** 2)
 
-    return Objective(fn, mode="second")
+    batched_value_and_grad = staticmethod(pairwise_rosenbrock_value_and_grad)
+
+
+@functools.lru_cache(maxsize=None)
+def pairwise_rosenbrock() -> Objective:
+    """The throughput grid's objective (benchmarks/roofline.py:108) and the
+    benchmark's: MGH problem 21 (``_PairwiseRosenbrock``), second mode.
+    Its batched evaluation (``Objective.batched_value_and_grad``) is the
+    function's closed form, not ``vmap(grad_and_value)``; every other
+    derivative takes the ``torch.func`` path."""
+    return Objective(_PairwiseRosenbrock(), mode="second")
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,6 +17,10 @@ from .fused_step_t import (
     lbfgs_prologue_t_reference,
     make_history_t,
 )
+from .objectives import (
+    pairwise_rosenbrock_value_and_grad,
+    pairwise_rosenbrock_value_and_grad_reference,
+)
 from .two_loop import (
     lbfgs_push_and_direction,
     lbfgs_push_and_direction_reference,
@@ -42,6 +46,8 @@ __all__ = [
     "make_history_t",
     "mt_trip",
     "mt_trip_reference",
+    "pairwise_rosenbrock_value_and_grad",
+    "pairwise_rosenbrock_value_and_grad_reference",
     "two_loop_direction",
     "two_loop_direction_reference",
 ]

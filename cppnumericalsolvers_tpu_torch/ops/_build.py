@@ -45,6 +45,8 @@ KERNELS = {
     "lbfgs_prologue_t": [_P] * 14 + [_I] * 6 + [_P],
     "push_two_loop": [_P] * 9 + [_I] * 6 + [_P],
     "two_loop": [_P] * 6 + [_I] * 6 + [_P],
+    # MGH 21's batched value and gradient (ops/objectives.py).
+    "pairwise_rosenbrock": [_P] * 3 + [_I] * 4 + [_P],
     # The calibration kernels of benchmarks_torch/roofline.py (ops/floors.py).
     "trip_floor": [_P] * 8 + [_I] + [_P],
     "launch_floor": [_P] * 2 + [_I] + [_P],

@@ -187,8 +187,8 @@ def test_wrappers_check_their_arguments():
 @pytest.mark.parametrize("name,ptrs,ints", [("trip_floor", 8, 1),
                                             ("launch_floor", 2, 1)])
 def test_entry_points_match_the_build_declaration(name, ptrs, ints):
-    """Both kernels are built with the other seven (``_build.KERNELS``, so
-    ``build_all`` compiles the nine in one pool); their C entry points take
+    """Both kernels are built with the other eight (``_build.KERNELS``, so
+    ``build_all`` compiles the ten in one pool); their C entry points take
     the buffers' pointers, the element count and the stream."""
     sig = _build.KERNELS[name]
     assert sig.count(_build._P) == ptrs + 1 and sig.count(_build._I) == ints
@@ -198,7 +198,7 @@ def test_entry_points_match_the_build_declaration(name, ptrs, ints):
     assert sum("*" in p for p in params) == ptrs + 1
     assert sum(p.startswith("int ") for p in params) == ints
     assert f"cppns_{name}_f32" in src and f"cppns_{name}_f64" in src
-    assert len(_build.KERNELS) == 9
+    assert len(_build.KERNELS) == 10
 
 
 @pytest.mark.parametrize("trips", TRIPS)
