@@ -19,6 +19,7 @@ plain reference, and one JSON line.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import json
@@ -89,11 +90,20 @@ class Recorder:
 
 def wrap_objective(base, rec: Recorder):
     """The solver's objective with the recorder in front of every batched
-    evaluation; otherwise the same object (function and mode)."""
-    from cppnumericalsolvers_tpu_torch import Objective
+    evaluation; otherwise the same object (its class, function, mode and
+    any further fields)."""
+    fields = {f.name: getattr(base, f.name)
+              for f in dataclasses.fields(base) if f.init}
+    return _recording(type(base))(**fields, rec=rec)
+
+
+@functools.cache
+def _recording(cls):
+    """``cls``, an ``Objective`` class, with the recorder in front of its
+    batched evaluation."""
 
     @dataclasses.dataclass(frozen=True, eq=False)
-    class BenchObjective(Objective):
+    class BenchObjective(cls):
         rec: Recorder = None
 
         def batched_value_and_grad(self, x):
@@ -107,7 +117,7 @@ def wrap_objective(base, rec: Recorder):
             self.rec.after(f, g)
             return f, g
 
-    return BenchObjective(base.fn, base.mode, rec)
+    return BenchObjective
 
 
 def _load(path: Path, name: str):
@@ -137,8 +147,9 @@ class Run:
 
 
 class Cell:
-    """One cell of ``BENCHMARK.json``, built from its files.  ``overrides``
-    (``batch``, ``n``) shrink it for the tests on the CPU."""
+    """One cell of ``BENCHMARK.json``, built from its files.  ``root`` holds
+    that file and the cell's files under ``perfbench/``; ``overrides``
+    (``batch``, ``n``) shrink the cell for the tests on the CPU."""
 
     def __init__(self, workload: str, device, root: Path = ROOT,
                  overrides: dict | None = None):
@@ -151,10 +162,10 @@ class Cell:
         configs = {c["name"]: c for c in spec["configs"]}
         self.config = json.loads(
             (root / configs[self.cell["config"]]["file"]).read_text())
-        self.traffic = json.loads(
-            (HERE / "traffic" / f"{self.cell['traffic']}.json").read_text())
+        self.traffic = json.loads((root / "perfbench" / "traffic" / (
+            f"{self.cell['traffic']}.json")).read_text())
         self.limits = json.loads(
-            (HERE / "limits" / f"{workload}.json").read_text())
+            (root / "perfbench" / "limits" / f"{workload}.json").read_text())
         self.metrics = [
             m for m in spec["end_to_end"] + spec["per_layer"]
             if workload in m.get("workloads", [workload])]

@@ -20,7 +20,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from perfbench import bench, check  # noqa: E402
+from perfbench import bench, check, launch  # noqa: E402
 
 
 def control_fn(base):
@@ -37,6 +37,9 @@ def main(argv=None, device="cuda:0", overrides=None):
     p.add_argument("--seeds", required=True)
     p.add_argument("--control", action="store_true")
     args = p.parse_args(argv)
+    if launch.is_sharded(args.workload):
+        return launch.calibrate(args, device.split(":")[0], overrides,
+                                bench.GRACE_S)
     cell = bench.Cell(args.workload, device, overrides=overrides)
     if args.control:
         cell.with_evaluation(control_fn(cell.base))

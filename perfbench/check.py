@@ -58,9 +58,18 @@ class Sample:
 
 
 def _rel_rows(a, ref):
-    """Largest ``|a - ref|`` of each row over ``max(1, max |ref|)``."""
-    scale = ref.abs().amax(-1).clamp_min(1.0)
-    return (a - ref).abs().amax(-1) / scale
+    """Largest ``|a - ref|`` of each row over ``max(1, max |ref|)``; inside
+    ``lbfgs_trip.over_ranks``, over every rank's coordinates of the row."""
+    scale = lbfgs_trip.amax_abs(ref).clamp_min(1.0)
+    return lbfgs_trip.amax_abs(a - ref) / scale
+
+
+def _reference(problem, x):
+    """The reference's values and gradients at rows ``x`` ``(R, n)``; inside
+    ``lbfgs_trip.over_ranks`` each value is summed over the ranks'
+    coordinates."""
+    f_ref, g_ref = problem.reference(x)
+    return lbfgs_trip.rank_sum(f_ref), g_ref
 
 
 def _worst(a: float, b: float) -> float:
@@ -71,7 +80,7 @@ def _worst(a: float, b: float) -> float:
 def _eval_gap(x, f, g, problem):
     """Largest evaluation gap of rows ``x`` ``(..., n)`` whose solver value
     and gradient are ``f`` and ``g``, against the reference's."""
-    f_ref, g_ref = problem.reference(x.reshape(-1, x.shape[-1]))
+    f_ref, g_ref = _reference(problem, x.reshape(-1, x.shape[-1]))
     fg = (f.reshape(-1) - f_ref).abs() / f_ref.abs().clamp_min(1.0)
     gg = _rel_rows(g.reshape(-1, x.shape[-1]), g_ref)
     return float(torch.maximum(fg, gg).max())
@@ -81,12 +90,14 @@ def step_gaps(x, f, g, x0, m, max_fev):
     """Largest gap over the lanes at each call: call 0 the first point
     against the start, call k the k-th trip's trial point against the
     reference's, which follows the solver's evaluations (``x``, ``f``,
-    ``g``: ``(calls, S, ...)``, float64)."""
-    gap = _rel_rows(x[0], x0).amax()[None]
+    ``g``: ``(calls, S, ...)``) one trip at a time in float64."""
+    f64 = torch.float64
+    gap = [_rel_rows(x[0].to(f64), x0.to(f64)).amax()]
     if x.shape[0] > 1:
-        ref = lbfgs_trip.replay(x[:-1], f[:-1], g[:-1], m, max_fev)
-        gap = torch.cat((gap, _rel_rows(x[1:], ref).amax(1)))
-    return gap
+        trials = lbfgs_trip.follow(x[:-1], f[:-1], g[:-1], m, max_fev)
+        gap += [_rel_rows(x[k].to(f64), t).amax()
+                for k, t in enumerate(trials, 1)]
+    return torch.stack(gap)
 
 
 def compare(samples, problem, m, max_fev) -> dict:
@@ -122,7 +133,7 @@ def compare(samples, problem, m, max_fev) -> dict:
         out["eval_gap"] = _worst(out["eval_gap"], _eval_gap(
             x, s.f.to(f64), s.g.to(f64), problem))
         out["f_final"] = _worst(out["f_final"], float(
-            (problem.reference(x)[0] - problem.F_STAR).max()))
+            (_reference(problem, x)[0] - problem.F_STAR).max()))
     out["step_gap_by_trip"] = by_trip
     return out
 

@@ -12,14 +12,19 @@ Thuente (ACM TOMS 20(3), 1994) and L-BFGS of Nocedal and Wright (2006, alg.
 It imports nothing of the program: later changes to the program cannot move
 it.  The history is kept in chronological order (row 0 the oldest) and
 shifted on a push, where the program keeps a ring; the arithmetic is the
-same.  Dots are plain ``torch.sum`` over the last axis.
+same.  Dots are plain ``torch.sum`` over the last axis.  Inside
+:func:`over_ranks` each process holds its own coordinates of every lane,
+and each sum and largest magnitude over n is the local one followed by one
+``all_reduce`` over the ranks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 # MINPACK constants (more_thuente.h:142-148).
 XTOL = 1e-15
@@ -48,8 +53,43 @@ class Stopping:
     past_delta: float = 1e-5
 
 
+#: The process group over which the n axis is split, inside
+#: :func:`over_ranks`; None where each process holds whole lanes.
+_GROUP = None
+
+
+@contextlib.contextmanager
+def over_ranks(group):
+    """Within this context the n axis of every vector is split over the
+    ranks of ``group``, each holding its own contiguous coordinates."""
+    global _GROUP
+    outer, _GROUP = _GROUP, group
+    try:
+        yield
+    finally:
+        _GROUP = outer
+
+
+def _over_ranks(s, op):
+    if _GROUP is not None:
+        dist.all_reduce(s, op=op, group=_GROUP)
+    return s
+
+
+def rank_sum(s):
+    """``s``, each rank's partial sum over its coordinates, summed over the
+    ranks (in place); ``s`` itself outside :func:`over_ranks`."""
+    return _over_ranks(s, dist.ReduceOp.SUM)
+
+
 def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+    return rank_sum(torch.sum(a * b, dim=-1))
+
+
+def amax_abs(a):
+    """Largest magnitude over the last axis, over every rank's
+    coordinates."""
+    return _over_ranks(torch.amax(torch.abs(a), dim=-1), dist.ReduceOp.MAX)
 
 
 def _sign(x):
@@ -315,8 +355,8 @@ def _progress(st, x1, f1, g1, boundary, crit):
     one = torch.ones_like(f1)
     numit = st.numit + 1
     f_delta = torch.abs(f1 - st.f0)
-    x_delta = torch.amax(torch.abs(x1 - st.x0), dim=-1)
-    gnorm = torch.amax(torch.abs(g1), dim=-1)
+    x_delta = amax_abs(x1 - st.x0)
+    gnorm = amax_abs(g1)
     status = torch.zeros_like(st.status)
 
     def first(status, cond, code):
@@ -351,7 +391,7 @@ def _progress(st, x1, f1, g1, boundary, crit):
     past_pos = torch.where(
         write, torch.where(st.past_pos + 1 >= crit.past, 0, st.past_pos + 1),
         st.past_pos).to(torch.int32)
-    scale = torch.maximum(one, torch.amax(torch.abs(x1), dim=-1))
+    scale = torch.maximum(one, amax_abs(x1))
     status = first(status, (crit.gradient_norm > 0)
                    & (gnorm < crit.gradient_norm * scale), GRADIENT_NORM)
 
@@ -416,7 +456,7 @@ def trip(st, f_t, g_t, x_trial, crit, max_fev):
     st.nfev = torch.where(boundary, st.nfev + st.ls_nfev, st.nfev)
     s_new, y_new = x1 - st.x0, g1 - st.g0
     count = torch.where(
-        boundary & (torch.amax(torch.abs(s_new), dim=-1) <= 0.0), 0,
+        boundary & (amax_abs(s_new) <= 0.0), 0,
         st.count).to(torch.int32)
     (status, st.numit, st.xviol, st.fviol, st.ring,
      st.past_pos) = _progress(st, x1, f1, g1, boundary, crit)
@@ -502,8 +542,17 @@ def replay(points, values, grads, m, max_fev, crit=Stopping()):
     the state that the first k + 1 evaluations led to.  Where the solver's
     trip is right, row k equals its ``points[k + 1]`` but for rounding, and
     that rounding does not pile up over the trips."""
-    st, x = init_state(points[0], values[0], grads[0], m, max_fev)
-    out = [x]
+    return torch.stack(list(follow(points, values, grads, m, max_fev, crit)))
+
+
+def follow(points, values, grads, m, max_fev, crit=Stopping()):
+    """:func:`replay` one trip at a time: yields its rows in turn, each
+    evaluation taken to float64 as it is reached, so that beside the
+    solver's points only the carry is held in float64."""
+    f64 = torch.float64
+    st, x = init_state(points[0].to(f64), values[0].to(f64),
+                       grads[0].to(f64), m, max_fev)
+    yield x
     for k in range(1, points.shape[0]):
-        out.append(trip(st, values[k], grads[k], points[k], crit, max_fev))
-    return torch.stack(out)
+        yield trip(st, values[k].to(f64), grads[k].to(f64),
+                   points[k].to(f64), crit, max_fev)

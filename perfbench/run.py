@@ -3,7 +3,8 @@
     python3 perfbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 from the repository root.  Prints one JSON line last on stdout; exits
-non-zero with no result without a CUDA card.
+non-zero with no result without as many CUDA cards as the cell asks for.  A
+model-sharded cell (``launch.py``) starts one process a card.
 """
 
 import time
@@ -32,6 +33,10 @@ def parse(argv=None):
 
 if __name__ == "__main__":
     args = parse()
+    from perfbench import launch
+
+    if launch.is_sharded(args.workload):
+        sys.exit(launch.main(args, T_PROCESS))
     from perfbench import bench
 
     sys.exit(bench.main(args, T_PROCESS))

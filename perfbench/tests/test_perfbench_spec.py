@@ -49,7 +49,9 @@ def test_names_units_and_entries():
         assert m["moves"] in e2e and "\n" not in m["layer"]
     for w in SPEC["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200
+    fours = sum(w["chips"] == 4 for w in SPEC["workloads"])
+    assert fours <= max(1, len(SPEC["workloads"]) // 4)
     pairs = [(w["config"], w["traffic"]) for w in SPEC["workloads"]]
     assert len(pairs) == len(set(pairs))
 
@@ -63,7 +65,13 @@ def test_cell_resolves_its_files_by_name(cell):
     assert cfg["reduced"] == conf["reduced"] == []
     traffic = json.loads(
         (ROOT / "perfbench/traffic" / f"{w['traffic']}.json").read_text())
-    assert traffic["batch"] * cfg["n"] == 2 ** 27
+    # Batched cells take B n = 2^27 on one card; a model-sharded cell one
+    # problem over its cards.
+    if cfg.get("path", "batched") == "batched":
+        assert traffic["batch"] * cfg["n"] == 2 ** 27 and w["chips"] == 1
+    else:
+        assert cfg["path"] == "model_sharded"
+        assert traffic["batch"] == 1 and cfg["cards"] == w["chips"]
     limits = json.loads(
         (ROOT / "perfbench/limits" / f"{cell}.json").read_text())
     assert set(limits) == {"step_gap", "eval_gap", "f_final"}
